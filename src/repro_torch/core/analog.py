@@ -11,12 +11,16 @@ device noise.
 
 Random draws: `map_matrix` draws the positive array's noise first, then
 the negative array's; `map_tiled` maps its tiles row-major.  One
-`torch.Generator` is consumed in that order.
+`torch.Generator` is consumed in that order.  Given a sequence of
+generators instead - one per Monte-Carlo simulation, the counterpart of
+the reference's `vmap` over keys - the programmed pairs carry a leading
+simulation axis (S, r, c), each simulation draws from its own generator in
+that same order, and the deterministic write-verify runs once for all.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -46,25 +50,27 @@ class AnalogConfig:
 IDEAL_CFG = AnalogConfig()
 
 
-def _a_eff(gpos, gneg, g0, cfg: AnalogConfig, r_wire=None, drift_t=None):
+def _a_eff(gpos, gneg, g0, cfg: AnalogConfig, r_wire=None, drift_t=None,
+           use_kernel=None):
     """The one readout pipeline: drift on the device state, then the wire
-    model, then the differential matrix in units of G0."""
+    model, then the differential matrix in units of G0.  Both arrays of
+    the pair go through one wire-model call (one nodal readout);
+    `use_kernel` is `nonideal.wire_readout`'s."""
     ni = cfg.nonideal
-    gp = nonideal.wire_readout(
-        nonideal.readout_conductance(gpos, ni, drift_t=drift_t),
-        ni, r_wire=r_wire)
-    gn = nonideal.wire_readout(
-        nonideal.readout_conductance(gneg, ni, drift_t=drift_t),
-        ni, r_wire=r_wire)
-    return (gp - gn) / g0
+    g = nonideal.wire_readout(
+        nonideal.readout_conductance(torch.stack([gpos, gneg]), ni,
+                                     drift_t=drift_t),
+        ni, r_wire=r_wire, use_kernel=use_kernel)
+    return (g[0] - g[1]) / g0
 
 
 @dataclasses.dataclass
 class CrossbarPair:
     """A signed matrix block programmed on two differential arrays.
 
-    `gpos`/`gneg` are conductances in Siemens after programming noise;
-    `scale` is the solver-global normalisation 1/max|A|.
+    `gpos`/`gneg` are conductances in Siemens after programming noise,
+    (r, c) or, for a Monte-Carlo batch, (S, r, c); `shape` is the array's
+    (r, c).  `scale` is the solver-global normalisation 1/max|A|.
     """
     gpos: torch.Tensor
     gneg: torch.Tensor
@@ -73,25 +79,49 @@ class CrossbarPair:
 
     @property
     def shape(self):
-        return tuple(self.gpos.shape)
+        return tuple(self.gpos.shape[-2:])
 
-    def a_eff(self, cfg: AnalogConfig, r_wire=None,
-              drift_t=None) -> torch.Tensor:
+    def a_eff(self, cfg: AnalogConfig, r_wire=None, drift_t=None,
+              use_kernel=None) -> torch.Tensor:
         """The matrix the circuit computes with (drift, then wire model)."""
-        return _a_eff(self.gpos, self.gneg, self.g0, cfg, r_wire, drift_t)
+        return _a_eff(self.gpos, self.gneg, self.g0, cfg, r_wire, drift_t,
+                      use_kernel)
 
 
-def map_matrix(a_block: torch.Tensor, generator: torch.Generator,
-               cfg: AnalogConfig, scale: torch.Tensor) -> CrossbarPair:
-    """Program one signed block onto a differential crossbar pair."""
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
+
+
+def map_matrix(a_block: torch.Tensor, generator: Generators,
+               cfg: AnalogConfig, scale: torch.Tensor,
+               use_kernel=None) -> CrossbarPair:
+    """Program one signed block onto a differential crossbar pair.
+
+    The pair's two target arrays are write-verified together (one call of
+    the compensation model); then each generator draws the positive
+    array's noise and the negative array's (`nonideal.program_conductances`
+    order).  A sequence of generators gives an (S, r, c) pair.
+    `use_kernel` is `nonideal.write_verified`'s.
+    """
+    ni = cfg.nonideal
     a_norm = a_block * scale
-    gpos_t = torch.clamp_min(a_norm, 0.0) * cfg.g0
-    gneg_t = torch.clamp_min(-a_norm, 0.0) * cfg.g0
-    gpos = nonideal.program_conductances(gpos_t, generator, cfg.nonideal,
-                                         cfg.g0)
-    gneg = nonideal.program_conductances(gneg_t, generator, cfg.nonideal,
-                                         cfg.g0)
-    return CrossbarPair(gpos, gneg, scale, cfg.g0)
+    targets = torch.stack([torch.clamp_min(a_norm, 0.0) * cfg.g0,
+                           torch.clamp_min(-a_norm, 0.0) * cfg.g0])
+    written = nonideal.write_verified(targets, ni, use_kernel)
+    single = isinstance(generator, torch.Generator)
+    gens = [generator] if single else list(generator)
+    draws = [nonideal.device_draws(targets.shape[1:], gen, ni,
+                                   targets.dtype)
+             for gen in gens for _ in range(2)]     # positive, negative
+    lead = (len(gens),) + tuple(targets.shape)
+    normal, uniform = (None if parts[0] is None
+                       else torch.stack(parts).reshape(lead)
+                       for parts in zip(*draws))
+    g = nonideal.apply_device_draws(written.expand(lead),
+                                    targets.expand(lead), normal, uniform,
+                                    ni, cfg.g0)
+    if single:
+        g = g[0]
+    return CrossbarPair(g[..., 0, :, :], g[..., 1, :, :], scale, cfg.g0)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +142,7 @@ def adc(v: torch.Tensor, cfg: AnalogConfig) -> torch.Tensor:
 
 def _row_load(pair: CrossbarPair, cfg: AnalogConfig) -> torch.Tensor:
     """Total physical conductance on each row summing node (both arrays)."""
-    return cfg.g0 + torch.sum(pair.gpos + pair.gneg, dim=1)
+    return cfg.g0 + torch.sum(pair.gpos + pair.gneg, dim=-1)
 
 
 def _per_row(load: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -151,8 +181,9 @@ def amc_inv(pair: CrossbarPair, v_in: torch.Tensor,
 # Partitioned MVM for blocks larger than one physical array
 # ---------------------------------------------------------------------------
 
-def map_tiled(a: torch.Tensor, generator: torch.Generator, cfg: AnalogConfig,
-              scale: torch.Tensor) -> List[List[CrossbarPair]]:
+def map_tiled(a: torch.Tensor, generator: Generators, cfg: AnalogConfig,
+              scale: torch.Tensor,
+              use_kernel=None) -> List[List[CrossbarPair]]:
     """Map an (R x C) matrix onto a grid of <= array_size tiles, row-major.
     R and C need not be multiples of the array size."""
     s = cfg.array_size
@@ -160,7 +191,7 @@ def map_tiled(a: torch.Tensor, generator: torch.Generator, cfg: AnalogConfig,
     grid = []
     for r0 in range(0, rows, s):
         grid.append([map_matrix(a[r0:r0 + s, c0:c0 + s], generator, cfg,
-                                scale)
+                                scale, use_kernel)
                      for c0 in range(0, cols, s)])
     return grid
 
@@ -206,17 +237,25 @@ class TileGrid:
     def shape(self):
         return tuple(self.gpos.shape)
 
-    def a_eff(self, cfg: AnalogConfig, r_wire=None,
-              drift_t=None) -> torch.Tensor:
-        return _a_eff(self.gpos, self.gneg, self.g0, cfg, r_wire, drift_t)
+    def a_eff(self, cfg: AnalogConfig, r_wire=None, drift_t=None,
+              use_kernel=None) -> torch.Tensor:
+        return _a_eff(self.gpos, self.gneg, self.g0, cfg, r_wire, drift_t,
+                      use_kernel)
 
     def pair(self, idx) -> CrossbarPair:
-        """View one tile of the stack as a CrossbarPair."""
+        """View one entry of the leading axis as a CrossbarPair."""
         return CrossbarPair(self.gpos[idx], self.gneg[idx], self.scale,
                             self.g0)
 
+    def tile(self, idx) -> CrossbarPair:
+        """View tile `idx` of the tile axis (-3) as a CrossbarPair; a
+        Monte-Carlo axis in front of it stays on the pair."""
+        return CrossbarPair(self.gpos[..., idx, :, :],
+                            self.gneg[..., idx, :, :], self.scale, self.g0)
+
 
 def stack_pairs(pairs, scale, g0) -> TileGrid:
-    """Stack same-shape CrossbarPairs into a (num, r, c) TileGrid."""
-    return TileGrid(torch.stack([p.gpos for p in pairs]),
-                    torch.stack([p.gneg for p in pairs]), scale, g0)
+    """Stack same-shape CrossbarPairs into a (..., num, r, c) TileGrid (the
+    tile axis is -3: a simulation axis of the pairs stays in front)."""
+    return TileGrid(torch.stack([p.gpos for p in pairs], dim=-3),
+                    torch.stack([p.gneg for p in pairs], dim=-3), scale, g0)

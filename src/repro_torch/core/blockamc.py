@@ -22,6 +22,12 @@ The program-once / solve-many pipeline, in the reference's names:
   ProgrammedSolver                     the handle over all of the above
   pack_arena_plans / program_packed /  the multi-tenant form: M plans of one
   execute_arena_packed                 `plan_signature` on a leading axis
+  build_original_plan / solve_original the single-array baseline ("original
+                                       AMC" of the paper's comparisons)
+  execute_flat                         the unfinalized level-schedule run
+  solve_batched /                      Monte-Carlo drivers: one simulation
+  solve_original_batched               per generator, batched on a leading
+                                       axis of every conductance stack
 
 The arena form has two executions of one layout.  The plain path runs each
 level as PyTorch matmuls over the materialized registers (slot-SSA form).
@@ -36,14 +42,18 @@ Differences from the reference, by design:
   * Random draws come from one `torch.Generator`, consumed in a fixed
     order: a stage programs inv1's subtree, then A2's tiles (row-major),
     then A3's tiles, then inv4s's subtree; each tile draws its positive
-    array before its negative one (`analog.map_matrix`).  The reference
-    splits JAX keys instead, so the two packages draw different noise.
+    array before its negative one (`analog.map_matrix`), and each array
+    its variation normals before its stuck-at uniforms
+    (`nonideal.program_conductances`).  The Monte-Carlo drivers take one
+    generator per simulation, each consumed in that same order.  The
+    reference splits JAX keys instead, so the two packages draw
+    different noise.
   * There is no jit, vmap or pytree.  A leading instance axis is written
-    out (the packed path), and the batched programming functions loop
-    over instances.
+    out: the packed path's tenants, the Monte-Carlo drivers' simulations
+    (where the reference vmaps over keys).  The packed programming
+    functions loop over instances.
   * Not ported yet: the `_cascade` custom VJP, per-array ages (`PlanAges`),
-    `aged`/`repaired` and block repair, the Monte-Carlo and sharded
-    solve functions.
+    `aged`/`repaired` and block repair, the sharded solve functions.
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ from typing import Any, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core import analog
-from repro_torch.core.analog import AnalogConfig, CrossbarPair, TileGrid
+from repro_torch.core.analog import (AnalogConfig, CrossbarPair, Generators,
+                                     TileGrid)
 from repro_torch.device import resolve_device
 
 
@@ -184,29 +195,52 @@ def partition_system(a: torch.Tensor, cfg: AnalogConfig,
                              scale=scale)
 
 
-def _program(t: Target, generator: torch.Generator, cfg: AnalogConfig,
-             scale: torch.Tensor) -> Plan:
+def _program(t: Target, generator: Generators, cfg: AnalogConfig,
+             scale: torch.Tensor, use_kernel=None) -> Plan:
     if isinstance(t, LeafTarget):
-        return LeafInvPlan(analog.map_matrix(t.a, generator, cfg, scale))
+        return LeafInvPlan(analog.map_matrix(t.a, generator, cfg, scale,
+                                             use_kernel))
     # the documented draw order: inv1, A2, A3, inv4s
-    inv1 = _program(t.inv1, generator, cfg, scale)
-    mvm2 = analog.map_tiled(t.a2, generator, cfg, scale)
-    mvm3 = analog.map_tiled(t.a3, generator, cfg, scale)
-    inv4s = _program(t.inv4s, generator, cfg, scale)
+    inv1 = _program(t.inv1, generator, cfg, scale, use_kernel)
+    mvm2 = analog.map_tiled(t.a2, generator, cfg, scale, use_kernel)
+    mvm3 = analog.map_tiled(t.a3, generator, cfg, scale, use_kernel)
+    inv4s = _program(t.inv4s, generator, cfg, scale, use_kernel)
     return BlockPlan(inv1=inv1, mvm2=mvm2, mvm3=mvm3, inv4s=inv4s, m=t.m)
 
 
-def program_system(parts: PartitionedSystem, generator: torch.Generator,
-                   cfg: AnalogConfig) -> SolvePlan:
-    """'Program' a partitioned system: conductance mapping + device noise."""
-    return SolvePlan(root=_program(parts.root, generator, cfg, parts.scale),
+def program_system(parts: PartitionedSystem, generator: Generators,
+                   cfg: AnalogConfig,
+                   use_kernel: Optional[bool] = None) -> SolvePlan:
+    """'Program' a partitioned system: conductance mapping + device noise.
+
+    A sequence of generators programs one Monte-Carlo simulation each: the
+    plan's pairs carry a leading simulation axis (see `analog.map_matrix`)
+    and `compile_plan` stacks them to (S, num, r, c).  The recursive
+    `execute` takes single plans only; `execute_flat`, `finalize` and the
+    executors after it take either.  `use_kernel` picks the sweeps of
+    nodal write-verify's readouts (`nonideal.wire_readout`'s convention).
+    """
+    return SolvePlan(root=_program(parts.root, generator, cfg, parts.scale,
+                                   use_kernel),
                      scale=parts.scale)
 
 
-def build_plan(a: torch.Tensor, generator: torch.Generator,
+def build_plan(a: torch.Tensor, generator: Generators,
                cfg: AnalogConfig, stages: Optional[int] = None) -> SolvePlan:
     """Partition, pre-process, normalise and 'program' matrix A."""
     return program_system(partition_system(a, cfg, stages), generator, cfg)
+
+
+def build_original_plan(a: torch.Tensor, generator: Generators,
+                        cfg: AnalogConfig,
+                        use_kernel: Optional[bool] = None) -> SolvePlan:
+    """The baseline 'original AMC': one monolithic INV array of size n,
+    whatever cfg.array_size says (every paper comparison's baseline).
+    `use_kernel` is `program_system`'s."""
+    scale = 1.0 / torch.max(torch.abs(a))
+    return SolvePlan(root=LeafInvPlan(analog.map_matrix(a, generator, cfg,
+                                                        scale, use_kernel)),
+                     scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +279,13 @@ def solve(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator,
           cfg: AnalogConfig, stages: Optional[int] = None) -> torch.Tensor:
     """Convenience: build_plan + execute."""
     return execute(build_plan(a, generator, cfg, stages), b, cfg)
+
+
+def solve_original(a: torch.Tensor, b: torch.Tensor,
+                   generator: torch.Generator,
+                   cfg: AnalogConfig) -> torch.Tensor:
+    """Baseline: original (monolithic) AMC solve."""
+    return execute(build_original_plan(a, generator, cfg), b, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -355,24 +396,17 @@ def _first_pair(p: Plan) -> CrossbarPair:
 
 
 def _inv_operators(grid: TileGrid, cfg: AnalogConfig, r_wire=None,
-                   drift_t=None) -> torch.Tensor:
-    """The (num, s, s) matrices one INV bucket's circuits solve with:
+                   drift_t=None, use_kernel=None) -> torch.Tensor:
+    """The (..., num, s, s) matrices one INV bucket's circuits solve with:
     the effective conductance plus the finite-gain diagonal loading."""
-    a = grid.a_eff(cfg, r_wire=r_wire, drift_t=drift_t)
+    a = grid.a_eff(cfg, r_wire=r_wire, drift_t=drift_t,
+                   use_kernel=use_kernel)
     if cfg.opa_gain is not None:
         load = (cfg.g0 + torch.sum(grid.gpos + grid.gneg, dim=-1)) \
             / (cfg.opa_gain * cfg.g0)
         a = a + load[..., :, None] * torch.eye(a.shape[-1], dtype=a.dtype,
                                                device=a.device)
     return a
-
-
-def _lu_solve(lu: torch.Tensor, piv: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
-    """lu_solve for a (n,) vector or an (n, k) batch."""
-    if x.ndim == 1:
-        return torch.linalg.lu_solve(lu, piv, x[:, None])[:, 0]
-    return torch.linalg.lu_solve(lu, piv, x)
 
 
 # ---------------------------------------------------------------------------
@@ -394,20 +428,21 @@ class _MvmLevel:
     rows: tuple
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
-        """v (cols,) or (cols, k) -> (rows,) / (rows, k), accumulating in
-        `amc_mvm_tiled`'s per-row order."""
+        """v (..., cols, k) -> (..., rows, k), accumulating in
+        `amc_mvm_tiled`'s per-row order; leading axes are a Monte-Carlo
+        batch of the plan."""
         divs = self.divs if self.divs else (None,) * len(self.rows)
         outs = []
         for refs, div in zip(self.rows, divs):
             acc = None
             for g, i in refs:
                 lo, hi = self.windows[g][i]
-                p = -(self.stacks[g][i] @ v[lo:hi])
+                p = -(self.stacks[g][..., i, :, :] @ v[..., lo:hi, :])
                 acc = p if acc is None else acc + p
             if div is not None:
-                acc = acc / (div[:, None] if acc.ndim == 2 else div)
+                acc = acc / div[..., None]
             outs.append(acc)
-        return torch.cat(outs)
+        return torch.cat(outs, dim=-2)
 
 
 @dataclasses.dataclass
@@ -425,8 +460,9 @@ class FinalizedPlan:
 
 
 def _finalize_mvm_level(fplan: FlatPlan, rows, cfg: AnalogConfig,
-                        r_wire=None, drift_t=None) -> _MvmLevel:
-    """Precompute one "mvm" level's effective operators and divisors."""
+                        mvm_eff) -> _MvmLevel:
+    """Gather one "mvm" level's effective operators (from `mvm_eff`, the
+    per-bucket readouts) and precompute its divisors."""
     groups: dict = {}        # (r, c) tile shape -> group index
     stacks: list = []
     windows: list = []
@@ -437,7 +473,7 @@ def _finalize_mvm_level(fplan: FlatPlan, rows, cfg: AnalogConfig,
         refs = []
         load = cfg.g0
         for bk, i in row:
-            pair = fplan.mvm_stacks[bk].pair(i)
+            pair = fplan.mvm_stacks[bk].tile(i)
             r, c = pair.shape
             if (r, c) not in groups:
                 groups[(r, c)] = len(stacks)
@@ -445,37 +481,49 @@ def _finalize_mvm_level(fplan: FlatPlan, rows, cfg: AnalogConfig,
                 windows.append([])
             g = groups[(r, c)]
             refs.append((g, len(stacks[g])))
-            stacks[g].append(pair.a_eff(cfg, r_wire=r_wire, drift_t=drift_t))
+            stacks[g].append(mvm_eff[bk][..., i, :, :])
             windows[g].append((col_off, col_off + c))
-            load = load + torch.sum(pair.gpos + pair.gneg, dim=1)
+            load = load + torch.sum(pair.gpos + pair.gneg, dim=-1)
             col_off += c
         row_refs.append(tuple(refs))
         if cfg.opa_gain is not None:
             divs.append(1.0 + load / (cfg.opa_gain * cfg.g0))
-    return _MvmLevel(tuple(torch.stack(s) for s in stacks), tuple(divs),
-                     tuple(tuple(w) for w in windows), tuple(row_refs))
+    return _MvmLevel(tuple(torch.stack(s, dim=-3) for s in stacks),
+                     tuple(divs), tuple(tuple(w) for w in windows),
+                     tuple(row_refs))
 
 
 def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
-             drift_t=None) -> FinalizedPlan:
+             drift_t=None, use_kernel: Optional[bool] = None
+             ) -> FinalizedPlan:
     """Precompute all per-solve-invariant operators of a flat plan.
 
-    `r_wire` optionally overrides the config wire resistance (first-order
-    model); `drift_t` optionally overrides the config device age with one
-    scalar age for the whole plan.
+    Every bucket of arrays is read out once, as one stack: one call of the
+    wire model per INV and per MVM bucket (one batched nodal readout each
+    under `wire_model="nodal"`).  The plan's stacks may carry a leading
+    Monte-Carlo axis (`program_system` with a sequence of generators); the
+    finalized operators then carry it too.  `r_wire` optionally overrides
+    the config wire resistance (first-order model); `drift_t` optionally
+    overrides the config device age with one scalar age for the whole plan.
+    `use_kernel=False` runs the nodal readouts' sweeps in their plain
+    version on the card (None: the kernel for CUDA tensors).
     """
     lu_stacks = tuple(
         tuple(torch.linalg.lu_factor(
-            _inv_operators(g, cfg, r_wire=r_wire, drift_t=drift_t)))
+            _inv_operators(g, cfg, r_wire=r_wire, drift_t=drift_t,
+                           use_kernel=use_kernel)))
         for g in fplan.inv_stacks)
+    mvm_eff = tuple(g.a_eff(cfg, r_wire=r_wire, drift_t=drift_t,
+                            use_kernel=use_kernel)
+                    for g in fplan.mvm_stacks)
     mvm_levels = []
     schedule = []
     for instr in fplan.schedule:
         if instr[0] == "mvm":
             _, rows, src = instr
             schedule.append(("fmvm", len(mvm_levels), src))
-            mvm_levels.append(_finalize_mvm_level(
-                fplan, rows, cfg, r_wire=r_wire, drift_t=drift_t))
+            mvm_levels.append(_finalize_mvm_level(fplan, rows, cfg,
+                                                  mvm_eff))
         else:
             schedule.append(instr)
     return FinalizedPlan(lu_stacks, tuple(mvm_levels), fplan.scale,
@@ -484,18 +532,24 @@ def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
 
 def execute_finalized(fin: FinalizedPlan, b: torch.Tensor) -> torch.Tensor:
     """Run a finalized schedule; returns x like `execute`.  `b` may be (n,)
-    or (n, k)."""
+    or (n, k); a plan with a leading Monte-Carlo axis S answers (S, n) or
+    (S, n, k).  Registers are (..., rows, k) throughout."""
     cfg = fin.cfg
-    regs = [analog.dac(b, cfg)]
+    single = b.ndim == 1
+    bk = b[:, None] if single else b
+    lead = (fin.lu_stacks[0][0] if fin.lu_stacks
+            else fin.mvm_levels[0].stacks[0]).shape[:-3]
+    regs = [analog.dac(bk, cfg).expand(lead + tuple(bk.shape))]
     for instr in fin.schedule:
         op = instr[0]
         if op == "slice":
             _, src, lo, hi = instr
-            regs.append(regs[src][lo:hi])
+            regs.append(regs[src][..., lo:hi, :])
         elif op == "inv":
             _, bucket, idx, src = instr
             lu, piv = fin.lu_stacks[bucket]
-            regs.append(-_lu_solve(lu[idx], piv[idx], regs[src]))
+            regs.append(-torch.linalg.lu_solve(lu[..., idx, :, :],
+                                               piv[..., idx, :], regs[src]))
         elif op == "fmvm":
             _, level, src = instr
             regs.append(fin.mvm_levels[level].apply(regs[src]))
@@ -506,10 +560,22 @@ def execute_finalized(fin: FinalizedPlan, b: torch.Tensor) -> torch.Tensor:
             regs.append(x1 + x2)
         elif op == "catneg":
             _, r1, r2 = instr
-            regs.append(torch.cat([regs[r1], -regs[r2]]))
+            regs.append(torch.cat([regs[r1], -regs[r2]], dim=-2))
         else:  # pragma: no cover - finalize only emits the ops above
             raise ValueError(f"unknown schedule op {op!r}")
-    return -fin.scale * analog.adc(regs[-1], cfg)
+    out = regs[-1][..., 0] if single else regs[-1]
+    return -fin.scale * analog.adc(out, cfg)
+
+
+def execute_flat(fplan: FlatPlan, b: torch.Tensor, cfg: AnalogConfig,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Run the level schedule straight from the conductances; returns x
+    like `execute`.  The unfinalized reference: every INV bucket is read
+    out and factorised once per call and every MVM tile re-derived, in the
+    order the reference's `execute_flat` uses, so it is `finalize`
+    followed by `execute_finalized`.  A plan with a leading Monte-Carlo
+    axis S answers (S, n) or (S, n, k).  `use_kernel` is `finalize`'s."""
+    return execute_finalized(finalize(fplan, cfg, use_kernel=use_kernel), b)
 
 
 # ---------------------------------------------------------------------------
@@ -735,13 +801,13 @@ def compile_arena(fin: FinalizedPlan) -> ArenaPlan:
         folded = [[None] * s.shape[-3] for s in lvl.stacks]
         for refs, div in zip(lvl.rows, divs):
             for g, i in refs:
-                w = -lvl.stacks[g][i]
+                w = -lvl.stacks[g][..., i, :, :]
                 if div is not None:
-                    w = w / div[:, None]
+                    w = w / div[..., None]
                 folded[g][i] = w
         for g, tiles in enumerate(folded):
             mvm_stack_id[(li, g)] = len(stacks)
-            stacks.append(torch.stack(tiles))
+            stacks.append(torch.stack(tiles, dim=-3))
 
     # --- pass 5: levels (schedule order; slot-SSA + arena coordinates) ----
     levels = []
@@ -778,7 +844,7 @@ def compile_arena(fin: FinalizedPlan) -> ArenaPlan:
         for level in levels:
             for sid, idx, m_out, out_local, init, segments in level:
                 terms = segments[0][2]
-                seq.append(stacks[sid][idx])
+                seq.append(stacks[sid][..., idx, :, :])
                 offs_l.append([offsets[m] + o for m, o, _ in terms]
                               + [0] * (n_terms - len(terms)))
                 signs_l.append([float(s) for _, _, s in terms]
@@ -786,7 +852,7 @@ def compile_arena(fin: FinalizedPlan) -> ArenaPlan:
                 outs_l.append(offsets[m_out] + out_local)
                 init_l.append(1 if init else 0)
         dev = stacks[0].device
-        program = (torch.stack(seq),
+        program = (torch.stack(seq, dim=-3),
                    torch.tensor(offs_l, dtype=torch.int32, device=dev),
                    torch.tensor(signs_l, dtype=torch.float32, device=dev),
                    torch.tensor(outs_l, dtype=torch.int32, device=dev),
@@ -1171,3 +1237,67 @@ def execute_arena_packed(pp: PackedArenaPlan, bs: torch.Tensor,
         out = out[..., 0]
     scale = pp.scale.reshape((-1,) + (1,) * (out.ndim - 1))
     return -scale * analog.adc(out, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo drivers: one programmed plan per generator, batched
+#
+# The reference vmaps programming and execution over PRNG keys.  Here the
+# simulations are a leading axis of the conductance stacks: one plan
+# programmed from the sequence of generators (one per simulation, each
+# drawing in the single-plan order), so every readout of a bucket - one
+# nodal readout under `wire_model="nodal"` - sees all simulations at once,
+# (S * num, r, c), and every schedule level is one batched op.
+# ---------------------------------------------------------------------------
+
+def _packed_simulations(ap: ArenaPlan, sims: int) -> PackedArenaPlan:
+    """An arena plan compiled from a Monte-Carlo plan (operators (S, L, r,
+    c)) as the packed plan of its S simulations."""
+    return PackedArenaPlan(
+        ap.stacks, ap.scale.expand(sims),
+        None if ap.program is None else ap.program[0],
+        None if ap.program is None else ap.program[1:],
+        ap.levels, ap.out_spec, ap.arena_size, ap.n, ap.in_off, ap.cfg,
+        ap.kernel_ok, ap.num_arrays, ap.slot_offsets, sims)
+
+
+def solve_batched(a: torch.Tensor, b: torch.Tensor,
+                  generators: Sequence[torch.Generator], cfg: AnalogConfig,
+                  stages: Optional[int] = None, mode: str = "reference",
+                  use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Batched Monte-Carlo BlockAMC solve, one simulation per generator.
+
+    The noise-independent pre-processing (partitioning, Schur complements,
+    normalisation) runs once; programming and execution are batched over
+    the simulations.  mode="reference" runs `execute_flat` (the
+    accuracy-study path); mode="fused" finalizes, arena-compiles and runs
+    the simulations as one packed arena execution (one kernel launch on
+    the card for a uniform plan).  `b` is (n,) or (n, k); returns (S, n) or
+    (S, n, k).  `use_kernel` picks the kernels or their plain versions for
+    the nodal write-verify and the readouts and, in fused mode, the arena
+    execution (None: the kernels for CUDA tensors).
+    """
+    if mode not in ("reference", "fused"):
+        raise ValueError(f"mode must be 'reference' or 'fused', got "
+                         f"{mode!r}")
+    gens = list(generators)
+    fplan = compile_plan(program_system(partition_system(a, cfg, stages),
+                                        gens, cfg, use_kernel=use_kernel))
+    if mode == "reference":
+        return execute_flat(fplan, b, cfg, use_kernel=use_kernel)
+    ap = compile_arena(finalize(fplan, cfg, use_kernel=use_kernel))
+    return execute_arena_packed(_packed_simulations(ap, len(gens)),
+                                b.expand((len(gens),) + tuple(b.shape)),
+                                use_kernel=use_kernel)
+
+
+def solve_original_batched(a: torch.Tensor, b: torch.Tensor,
+                           generators: Sequence[torch.Generator],
+                           cfg: AnalogConfig,
+                           use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Batched Monte-Carlo baseline: original (monolithic) AMC solve, one
+    simulation per generator; returns (S, n) or (S, n, k).  `use_kernel`
+    as in `solve_batched`."""
+    fplan = compile_plan(build_original_plan(a, list(generators), cfg,
+                                             use_kernel=use_kernel))
+    return execute_flat(fplan, b, cfg, use_kernel=use_kernel)

@@ -17,9 +17,9 @@ Noise comes from an explicit `torch.Generator`.  It is drawn on the
 generator's device and then moved to the conductances' device, so one
 seed gives the same conductances on the host and on the card.
 
-Not in this module yet (they raise NotImplementedError): the exact
-"nodal" wire model, nodal write-verify and stuck-at faults, which belong
-to the physics layer.
+The physics layer (`repro_torch.physics`) plugs in here: the exact
+"nodal" wire model at readout, nodal write-verify and stuck-at faults at
+programming time.  It is imported where it is used, as in the reference.
 """
 from __future__ import annotations
 
@@ -124,36 +124,85 @@ PAPER_FULL = NonidealConfig(sigma=0.05, r_wire=1.0)
 # ---------------------------------------------------------------------------
 # Shared programming / readout pipeline
 #
-#   program_conductances : target -> device state (write-verify, noise)
+#   program_conductances : target -> device state (write-verify, noise,
+#                          stuck-at faults)
 #   readout_conductance + wire_readout : device state -> the matrix the
 #                          circuit computes with (drift, then wire model)
 # ---------------------------------------------------------------------------
 
-def _physics_slice(what: str):
-    return NotImplementedError(
-        f"{what} belongs to the physics layer, which repro_torch does not "
-        f"port yet")
+def write_verified(g_target: torch.Tensor, ni: NonidealConfig,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The deterministic part of programming: the write-verify
+    pre-distortion of a (..., r, c) target stack against the configured
+    compensation model (the targets themselves when it is off).  The nodal
+    model reads the whole stack with one batched readout per round, its
+    sweeps picked by `use_kernel` (`wire_readout`'s convention)."""
+    if not (ni.compensate_wire and ni.r_wire > 0.0):
+        return g_target
+    model = ni.compensate_model or ni.wire_model
+    if model == "first_order":
+        return compensate_conductances(g_target, ni.r_wire, ni.wv_iters)
+    if model == "nodal":
+        from repro_torch.physics import dynamics as _dyn
+        return _dyn.write_verify(g_target, ni.r_wire, model="nodal",
+                                 iters=ni.wv_iters, use_kernel=use_kernel)
+    if model != "none":
+        raise ValueError(f"unknown compensate_model: {model!r}")
+    return g_target
+
+
+def _has_faults(ni: NonidealConfig) -> bool:
+    return ni.p_stuck_on > 0.0 or ni.p_stuck_off > 0.0
+
+
+def device_draws(shape, generator: torch.Generator, ni: NonidealConfig,
+                 dtype: torch.dtype):
+    """The random numbers of one programmed stack, in the documented
+    order: the variation normals (sigma > 0), then the stuck-at uniforms
+    (faults on); None for a draw that is off.  Drawn on the generator's
+    device."""
+    normal = uniform = None
+    if ni.sigma != 0.0:
+        normal = torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                             device=generator.device)
+    if _has_faults(ni):
+        uniform = torch.rand(tuple(shape), generator=generator,
+                             device=generator.device)
+    return normal, uniform
+
+
+def apply_device_draws(g: torch.Tensor, g_target: torch.Tensor, normal,
+                       uniform, ni: NonidealConfig, g0: float
+                       ) -> torch.Tensor:
+    """Write noise (clipped at zero), then stuck-at faults stamped after
+    it, from draws made by `device_draws` (moved to g's device)."""
+    if normal is not None:
+        g = torch.clamp_min(g + (ni.sigma * g0) * normal.to(g.device), 0.0)
+    if uniform is not None:
+        from repro_torch.physics import faults as _faults
+        on, off = _faults.stuck_masks(uniform.to(g.device), ni.p_stuck_on,
+                                      ni.p_stuck_off)
+        g = _faults.apply_stuck_masks(
+            g, g_target, on, off, g_on=ni.g_stuck_on * g0,
+            g_off=ni.g_stuck_off * g0, remap=ni.remap_faults)
+    return g
 
 
 def program_conductances(g_target: torch.Tensor, generator: torch.Generator,
-                         ni: NonidealConfig, g0: float) -> torch.Tensor:
-    """The one programming pipeline: write-verify, then write noise.
+                         ni: NonidealConfig, g0: float,
+                         use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """The one programming pipeline: write-verify, then write noise, then
+    stuck-at faults.
 
-    `g_target` is a (..., r, c) stack of target conductances.  Noise is
-    drawn from `generator` independently per device.
+    `g_target` is a (..., r, c) stack of target conductances.  The stack's
+    variation normals are drawn from `generator` first, then its fault
+    uniforms, one per device each (the reference splits its key into a
+    variation key and a fault key instead).  `use_kernel` is
+    `write_verified`'s.
     """
-    g = g_target
-    if ni.compensate_wire and ni.r_wire > 0.0:
-        model = ni.compensate_model or ni.wire_model
-        if model == "first_order":
-            g = compensate_conductances(g, ni.r_wire, ni.wv_iters)
-        elif model == "nodal":
-            raise _physics_slice("nodal write-verify")
-        elif model != "none":
-            raise ValueError(f"unknown compensate_model: {model!r}")
-    if ni.p_stuck_on > 0.0 or ni.p_stuck_off > 0.0:
-        raise _physics_slice("stuck-at faults")
-    return apply_variation(g, generator, ni.sigma * g0)
+    g = write_verified(g_target, ni, use_kernel)
+    normal, uniform = device_draws(g.shape, generator, ni, g.dtype)
+    return apply_device_draws(g, g_target, normal, uniform, ni, g0)
 
 
 def readout_conductance(g: torch.Tensor, ni: NonidealConfig,
@@ -180,12 +229,16 @@ def readout_conductance(g: torch.Tensor, ni: NonidealConfig,
     return g * (ni.drift_t ** (-ni.drift_nu))
 
 
-def wire_readout(g: torch.Tensor, ni: NonidealConfig,
-                 r_wire=None) -> torch.Tensor:
+def wire_readout(g: torch.Tensor, ni: NonidealConfig, r_wire=None,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Apply the configured wire model over a (..., r, c) stack.
 
-    `r_wire` optionally overrides `ni.r_wire` and always routes through the
-    first-order model.
+    The nodal model reads the whole stack with one batched nodal readout
+    over its flattened leading axes (in chunks that keep a chunk's Minv
+    stack at `physics.nodal.READOUT_CHUNK_BYTES`); on the card its sweeps
+    run in the block-Thomas kernel, unless `use_kernel=False` asks for the
+    plain version (`physics.nodal` convention).  `r_wire` optionally
+    overrides `ni.r_wire` and always routes through the first-order model.
     """
     if r_wire is not None:
         return effective_conductance(g, r_wire)
@@ -194,5 +247,6 @@ def wire_readout(g: torch.Tensor, ni: NonidealConfig,
     if ni.wire_model == "first_order":
         return effective_conductance(g, ni.r_wire)
     if ni.wire_model == "nodal":
-        raise _physics_slice("the nodal wire model")
+        from repro_torch.physics import dynamics as _dyn
+        return _dyn.nodal_readout(g, ni.r_wire, use_kernel=use_kernel)
     raise ValueError(f"unknown wire_model: {ni.wire_model!r}")

@@ -22,17 +22,8 @@ import torch
 
 from repro_torch.core.quantization import quantizer_step
 from repro_torch.kernels import _build
-
-_NUM_SMS = 132   # H100 SXM: the column slice is chosen to fill the card
-
-
-def _column_slice(m: int, k: int) -> int:
-    """Columns per block (a power of two <= 32): the widest slice that
-    still puts at least one block on every SM, or 1 if none does."""
-    kb = 32
-    while kb > 1 and m * -(-k // kb) < _NUM_SMS:
-        kb //= 2
-    return kb
+from repro_torch.kernels._launch import check as _check
+from repro_torch.kernels._launch import column_slice, num_sms
 
 
 @functools.cache
@@ -47,15 +38,6 @@ def _entry():
     lib.arena_error_string.argtypes = [ctypes.c_int]
     lib.arena_error_string.restype = ctypes.c_char_p
     return lib, fn
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
-            or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: need a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
 
 
 def arena_packed_apply(arena: torch.Tensor, ops: torch.Tensor,
@@ -92,7 +74,7 @@ def arena_packed_apply(arena: torch.Tensor, ops: torch.Tensor,
         err = fn(arena.data_ptr(), ops.data_ptr(), in_offs.data_ptr(),
                  in_signs.data_ptr(), out_offs.data_ptr(),
                  out_init.data_ptr(), m, s, k, t, r, c, j,
-                 _column_slice(m, k), dac_bits or 0, dac_step,
+                 column_slice(m, k, num_sms(dev)), dac_bits or 0, dac_step,
                  adc_bits or 0, adc_step, fullscale, stream)
     if err != 0:
         raise RuntimeError(f"arena kernel launch failed: "

@@ -45,3 +45,25 @@ def arena_level_ref(arena, ops, in_offs, in_signs, out_offs, out_init, *,
     return arena_packed_ref(arena[None], ops[None], in_offs, in_signs,
                             out_offs, out_init, dac_bits=dac_bits,
                             adc_bits=adc_bits, fullscale=fullscale)[0]
+
+
+def block_tridiag_solve_ref(minv, rhs, *, gw):
+    """Plain version of the batched block-Thomas sweeps: a Python loop over
+    the nr block rows, the batch vectorised; keeps the input dtype.
+
+    minv (B, nr, s, s), rhs (B, nr, s, k) -> (B, nr, s, k), with
+    z_i = Minv_i (rhs_i + gw z_{i-1}) forward and
+    x_i = z_i + gw Minv_i x_{i+1} backward (z_{-1} = x_{nr} = 0).
+    """
+    nr = rhs.shape[1]
+    z = torch.zeros_like(rhs[:, 0])
+    zs = []
+    for i in range(nr):
+        z = minv[:, i] @ (rhs[:, i] + gw * z)
+        zs.append(z)
+    x = torch.zeros_like(z)
+    xs = [None] * nr
+    for i in reversed(range(nr)):
+        x = zs[i] + gw * (minv[:, i] @ x)
+        xs[i] = x
+    return torch.stack(xs, dim=1)

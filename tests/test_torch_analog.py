@@ -109,13 +109,32 @@ def test_programming_noise_statistics():
     (dict(compensate_wire=True, r_wire=1.0, compensate_model="nodal"),
      "program")])
 def test_physics_hooks_raise_until_ported(kw, stage):
+    """The physics hooks, which raised before the physics layer was
+    ported, now run: the nodal readout and nodal write-verify agree with
+    the JAX package (float64, 1e-10 of max|.|); stuck-at faults stamp
+    G_on / G_off over the noiseless targets."""
     ni = tni.NonidealConfig(**kw)
-    g = torch.full((4, 4), G0)
-    with pytest.raises(NotImplementedError):
-        if stage == "program":
-            tni.program_conductances(g, torch.Generator(), ni, G0)
-        else:
-            tni.wire_readout(g, ni)
+    g = _g((2, 4, 4)).astype(np.float64)
+    if stage == "readout":
+        out = tni.wire_readout(t(g), ni)
+        with jax.enable_x64(True):
+            want = np.asarray(jni.wire_readout(jnp.asarray(g),
+                                               jni.NonidealConfig(**kw)))
+    elif "p_stuck_on" in kw:
+        ni = tni.NonidealConfig(p_stuck_on=0.5, p_stuck_off=0.25)
+        out = tni.program_conductances(t(g), torch.Generator().manual_seed(0),
+                                       ni, G0)
+        stuck = (out == G0) | (out == 0.0)
+        assert torch.equal(out[~stuck], t(g)[~stuck]) and stuck.any()
+        return
+    else:
+        out = tni.program_conductances(t(g), torch.Generator(), ni, G0)
+        with jax.enable_x64(True):
+            want = np.asarray(jni.program_conductances(
+                jnp.asarray(g), jax.random.PRNGKey(0),
+                jni.NonidealConfig(**kw), G0))
+    assert out.dtype == torch.float64
+    close(out, want, rtol=0, atol=1e-10 * np.abs(want).max())
 
 
 def _pair_inputs(rows, cols, k):

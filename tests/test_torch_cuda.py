@@ -8,7 +8,11 @@ without it:
 Tolerances: 1e-5 of max|out| with ideal converters (the kernel and the
 plain version reassociate f32 sums); with converters on, one-step ADC
 flips are allowed (`quantized_close`); whole solves through the kernel
-against the plain path at 1e-4 of max|x| (the same sums, cascaded).
+against the plain path at 1e-4 of max|x| (the same sums, cascaded).  The
+block-Thomas kernel against its plain version: 1e-5 of max|out| in
+float32 and 1e-12 in float64 on well-conditioned random factor stacks
+(real nodal factor stacks amplify rounding; chip_smoke.py holds the
+kernel to a float64 evaluation there).
 """
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from repro_torch.core import blockamc
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.nonideal import NonidealConfig
 from repro_torch.kernels import arena_mvm
+from repro_torch.kernels import banded_solve
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.serve import SolverService
@@ -109,3 +114,67 @@ def test_service_flush_all_is_one_launch(cuda):
         assert out[mid].shape == (16, len(cols))
         scaled_close(out[mid], want.cpu().numpy(), 1e-4)
         assert np.isfinite(out[mid]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nr,s,k,dtype", [
+    (3, 5, 37, 7, torch.float32), (2, 4, 64, 33, torch.float64),
+    (1, 3, 300, 5, torch.float32), (4, 6, 64, 64, torch.float32)])
+def test_block_tridiag_kernel_matches_plain_version(cuda, b, nr, s, k,
+                                                    dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    minv = torch.randn((b, nr, s, s), generator=gen, device=cuda,
+                       dtype=dtype) * (0.5 / s ** 0.5)
+    rhs = torch.randn((b, nr, s, k), generator=gen, device=cuda, dtype=dtype)
+    before = banded_solve.block_tridiag_solve.launches
+    out = ops.block_tridiag_solve(minv, rhs, gw=0.7)
+    torch.cuda.synchronize()
+    assert banded_solve.block_tridiag_solve.launches == before + 1
+    assert out.dtype == dtype
+    scaled_close(out.cpu(), ref.block_tridiag_solve_ref(minv, rhs,
+                                                        gw=0.7).cpu(),
+                 1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_block_tridiag_launcher_refuses_bad_input(cuda):
+    minv = torch.zeros((2, 3, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        banded_solve.block_tridiag_solve(minv, torch.zeros((2, 3, 8, 4),
+                                                           device=cuda,
+                                                           dtype=torch.int32),
+                                         gw=1.0)
+    with pytest.raises(ValueError):
+        banded_solve.block_tridiag_solve(minv[:, :2], torch.zeros(
+            (2, 3, 8, 4), device=cuda), gw=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_solve.block_tridiag_solve(minv.cpu(), torch.zeros(
+            (2, 3, 8, 4)), gw=1.0)
+
+
+@pytest.mark.cuda
+def test_nodal_solver_path_launches_the_banded_kernel(cuda):
+    """Programming under the nodal model reads each bucket of arrays out
+    once through the kernel; the answers match the plain path's, whose
+    write-verify and readouts run the plain sweeps."""
+    cfg = AnalogConfig(array_size=16, nonideal=NonidealConfig(
+        sigma=0.05, r_wire=1.0, wire_model="nodal", compensate_wire=True,
+        p_stuck_on=0.01, p_stuck_off=0.01))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(256, 64, generator=gen)
+    a = (x.T @ x / 256).to(cuda)
+    bs = (torch.rand(64, 4, generator=gen) * 2 - 1).to(cuda)
+    before = banded_solve.block_tridiag_solve.launches
+    solver = blockamc.ProgrammedSolver.program(
+        a, torch.Generator().manual_seed(5), cfg, 2, device=cuda)
+    # 3 write-verify rounds for each of 16 array pairs, then one readout
+    # for the INV bucket and one for each of the two MVM buckets
+    assert banded_solve.block_tridiag_solve.launches == before + 16 * 3 + 3
+    fplan = blockamc.compile_plan(blockamc.program_system(
+        blockamc.partition_system(a, cfg, 2),
+        torch.Generator().manual_seed(5), cfg, use_kernel=False))
+    plain = blockamc.compile_arena(blockamc.finalize(fplan, cfg,
+                                                     use_kernel=False))
+    scaled_close(solver.solve_many(bs).cpu(),
+                 blockamc.execute_arena(plain, bs, use_kernel=False).cpu(),
+                 1e-4)

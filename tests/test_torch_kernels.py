@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
+from repro_torch.kernels._launch import column_slice
 from repro_torch.kernels import arena_mvm as tarena
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -63,11 +64,15 @@ def test_kernel_launcher_refuses_host_tensors():
 
 
 def test_column_slice_fills_the_card():
-    assert tarena._column_slice(16, 8) == 1            # main path: 128 blocks
-    assert tarena._column_slice(128, 128) == 32        # 512 blocks
-    assert tarena._column_slice(1, 5) == 1
+    sxm = 132                                           # H100 SXM
+    assert column_slice(16, 8, sxm) == 1            # main path: 128 blocks
+    assert column_slice(128, 128, sxm) == 32        # 512 blocks
+    assert column_slice(1, 5, sxm) == 1
+    assert column_slice(8, 256, sxm) == 8           # 256 blocks
+    assert column_slice(8, 256, 114) == 16          # H100 PCIe: 128 blocks
+    assert column_slice(8, 256, sxm, fits=lambda kb: kb <= 4) == 4
     for m, k in [(1, 1), (4, 32), (16, 8), (128, 128), (3, 1000)]:
-        kb = tarena._column_slice(m, k)
+        kb = column_slice(m, k, sxm)
         assert kb in (1, 2, 4, 8, 16, 32)
 
 
