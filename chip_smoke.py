@@ -6,9 +6,10 @@
 Builds the hand-written CUDA kernels from `src/repro_torch/kernels/csrc/`,
 holds each against its plain PyTorch version on the card, and drives the
 port's paths at full width, checking that they went through the kernels:
-the paper's program-once / solve-many serving flow, and the Fig. 9
-interconnect study under the exact nodal wire model.  Phases (every
-check raises; nothing is caught):
+the paper's program-once / solve-many serving flow, the Fig. 9
+interconnect study under the exact nodal wire model, the kernel bench's
+rows and the example's path (`examples/solve_linear_system.py`).  Phases
+(every check raises; nothing is caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
   2. build the kernels (one nvcc per source, in parallel);
@@ -36,6 +37,21 @@ check raises; nothing is caught):
      64x64, nodal write-verify, stuck-at faults) programs 4 tenants and
      answers 8 rhs each with one `flush_all`; answers against the plain
      path, programming included;
+  9. the kernel bench's rows: the crossbar kernel at (B, R, C) =
+     (256, 512, 512) and (512, 1024, 1024), 8-bit and ideal; the stacked
+     crossbar at (L, B, R, C) = (16, 64, 64, 64), (16, 128, 128, 128) and
+     on one INV bucket stack of the Fig. 8 plan; the Schur kernel at
+     n=512 and 1024 (float32) and 128 (bfloat16) - each timed through
+     `kernels.ops` and held against its plain version (Schur also timed
+     against `torch.addmm`);
+ 10. the example's path: the tile solver at n=1024 (stages=3, 128x128,
+     sigma 0 / 0.01 / 0.05) against float64, a programmed 256x256
+     two-stage solver with 16 rhs and its refined solve, the hybrid
+     benchmark's headline preconditioned CG and GMRES (n=64, cond 1e4,
+     one arena launch per preconditioner application), the example's
+     crossbar check on a mapped tile grid (one launch), the Fig. 8
+     service's `solve_refined` and `flush(refined=True)`, and the
+     area/energy verdict;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -44,6 +60,7 @@ checkout of the repository.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -56,6 +73,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 F64_FLOP_PER_S = 67e12         # H100 SXM data sheet, FP64 Tensor Core (the
 #                                sweeps are matrix products)
 KERNEL_REL_TOL = 1e-5   # kernel vs plain: reassociated f32 sums
@@ -63,6 +81,10 @@ SOLVE_REL_TOL = 1e-4    # end-to-end answers: the same, through 23 cascaded
 #                         tiles whose Schur updates cancel
 IDEAL_TOL = 1e-4        # ideal config vs float64 solve, paper metric (f32)
 KERNEL_F64_TOL = 1e-12  # block-Thomas kernel vs plain in float64
+DIST_IDEAL_TOL = 1e-5   # ideal tile solver vs float64, paper metric: f32
+#                         through three stages of Schur complements, cond ~9
+REFINED_TOL = 1e-4      # refined answers vs float64, paper metric: a 1e-6
+#                         relative residual times cond ~9, with f32 residuals
 FIG9_SIMS = 40          # the paper's "40 random simulations" (Section IV)
 
 
@@ -118,14 +140,47 @@ def _time_ms(fn, reps: int, per_batch: int) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, reps: int = 5, per_graph: int = 20) -> float:
+    """Median device time of one call, replayed from a CUDA graph of
+    `per_graph` captured calls: the host's launch cost (Python, ctypes,
+    the wrappers' checks) is left out, which back-to-back timing cannot
+    do for calls shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / per_graph)
+    return statistics.median(times)
+
+
+def _roofline(nbytes, flops, peak=F32_FLOP_PER_S):
+    """(least ms, what bounds it): bytes over HBM against flops over the
+    peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _bound(m, s, k, t, r, c, j):
     """Least time for one call: each input read once, each output written
     once, over HBM; the gathers and products over the f32 peak."""
-    nbytes = 4 * (2 * m * s * k + m * t * r * c + 2 * t * j + 2 * t)
-    flops = m * t * k * (2 * r * c + 2 * j * c)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return _roofline(4 * (2 * m * s * k + m * t * r * c + 2 * t * j + 2 * t),
+                     m * t * k * (2 * r * c + 2 * j * c))
 
 
 def _program_meta(blockamc, cfg, n, device):
@@ -143,13 +198,10 @@ def _banded_bound(b, nr, s, k, dtype):
     """Least time of one block-Thomas call: minv, rhs read once and out
     written once over HBM; 4*nr*s^2*k flops a batch element over the
     dtype's peak."""
-    size = 8 if dtype == torch.float64 else 4
-    nbytes = size * b * nr * s * (s + 2 * k)
-    flops = 4 * b * nr * s * s * k
-    peak = F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    f64 = dtype == torch.float64
+    return _roofline((8 if f64 else 4) * b * nr * s * (s + 2 * k),
+                     4 * b * nr * s * s * k,
+                     F64_FLOP_PER_S if f64 else F32_FLOP_PER_S)
 
 
 def _banded_phase(dev):
@@ -277,7 +329,6 @@ def _fig9_phase(dev, n=256, sims=FIG9_SIMS):
     keeps readout rounding small: not for the original AMC, whose noisy
     256 x 256 operator amplifies the float32 readouts' rounding (kernel
     and plain alike) far past it."""
-    import dataclasses
     from repro_torch.core import blockamc
     from repro_torch.core.analog import AnalogConfig
     from repro_torch.core.metrics import relative_error
@@ -430,6 +481,364 @@ def _nodal_serving_phase(dev, n=256, tenants=4, k=8):
                      torch.from_numpy(answers[mid]), plain.cpu(),
                      SOLVE_REL_TOL)
     return banded, arena, prog
+
+
+def _xbar_bound(l, b, r, c):
+    """Least time of one float32 crossbar call: v and both conductance
+    stacks read once, the output written once; the products and the
+    differential subtract over the f32 peak."""
+    return _roofline(4 * (l * b * c + 2 * l * r * c + l * b * r),
+                     2 * l * b * r * c + l * r * c)
+
+
+def _schur_bound(i, j, k, size=4):
+    """Least time of one Schur call: a4, a3, w (`size` bytes each) read
+    once, the float32 output written once; 2*I*J*K flops over the peak of
+    the inputs' type (bf16 products are exact in f32 with an f32 sum, so
+    the bf16 tensor cores compute the same function)."""
+    return _roofline(size * (i * j + i * k + k * j) + 4 * i * j,
+                     2 * i * j * k,
+                     BF16_FLOP_PER_S if size == 2 else F32_FLOP_PER_S)
+
+
+def _bench_phase(dev):
+    """Phase 9: the kernel bench's rows on the three kernels of slice 3.
+
+    Every row is one check-run of the kernel through its public entry
+    point (`kernels.ops`) and timed runs of the same call (back to back,
+    and replayed from a CUDA graph, which leaves out the host's launch
+    cost) - the path of
+    `benchmarks/kernel_bench.py`'s crossbar, batched and Schur rows - with
+    the launch counts read over the rows.  Each row's check-run output is
+    then held against the plain version on the same inputs (no further
+    launch): 1e-5 of max|out| ideal; with 8-bit converters at most one
+    ADC step on at most 2% of outputs.  Returns (stats, launches)."""
+    from repro_torch.core import blockamc
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.matrices import wishart
+    from repro_torch.kernels import crossbar_mvm, ops, ref, schur_gemm
+    print("phase 9: crossbar, batched crossbar and Schur kernels at the "
+          "kernel bench's shapes, against their plain versions")
+    g0 = 100e-6
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def uniform(shape, lo, hi, dtype=torch.float32):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
+                + lo).to(dtype)
+
+    rows = []       # (key, label, kernel fn, plain fn, library fn, bound,
+    #                  bits, dtype)
+    for b, r, c in ((256, 512, 512), (512, 1024, 1024)):
+        v = uniform((b, c), -1, 1)
+        gp, gn = uniform((r, c), 0, g0), uniform((r, c), 0, g0)
+        for bits in (8, None):
+            kw = dict(g0=g0, dac_bits=bits, adc_bits=bits)
+            rows.append((
+                "crossbar_mvm", f"crossbar ({b},{r},{c}) "
+                f"{'8-bit' if bits else 'ideal'}",
+                lambda v=v, gp=gp, gn=gn, kw=kw: ops.crossbar_mvm(
+                    v, gp, gn, **kw),
+                lambda v=v, gp=gp, gn=gn, kw=kw: ref.crossbar_mvm_ref(
+                    v, gp, gn, **kw), None, _xbar_bound(1, b, r, c), bits))
+    for l, b, r, c in ((16, 64, 64, 64), (16, 128, 128, 128)):
+        v = uniform((l, b, c), -1, 1)
+        gp, gn = uniform((l, r, c), 0, g0), uniform((l, r, c), 0, g0)
+        kw = dict(g0=g0, dac_bits=8, adc_bits=8)
+        rows.append((
+            "crossbar_mvm_batched", f"batched ({l},{b},{r},{c}) 8-bit",
+            lambda v=v, gp=gp, gn=gn, kw=kw: ops.crossbar_mvm_batched(
+                v, gp, gn, **kw),
+            lambda v=v, gp=gp, gn=gn, kw=kw: ref.crossbar_mvm_batched_ref(
+                v, gp, gn, **kw), None, _xbar_bound(l, b, r, c), 8))
+    # one INV bucket stack of the Fig. 8 configuration's flat plan
+    cfg = AnalogConfig(array_size=64, nonideal=NonidealConfig(sigma=0.05))
+    a = wishart(torch.Generator().manual_seed(8), 256, device=dev)
+    fplan = blockamc.compile_plan(blockamc.program_system(
+        blockamc.partition_system(a, cfg, 2),
+        torch.Generator().manual_seed(80), cfg))
+    grid = fplan.inv_stacks[0]
+    num, s, _ = grid.shape
+    v = uniform((num, 8, s), -1, 1)
+    rows.append((
+        "crossbar_mvm_batched", f"batched Fig. 8 INV stack ({num},8,{s},{s})",
+        lambda v=v: ops.crossbar_mvm_batched(v, grid.gpos, grid.gneg,
+                                             g0=cfg.g0),
+        lambda v=v: ref.crossbar_mvm_batched_ref(v, grid.gpos, grid.gneg,
+                                                 g0=cfg.g0), None,
+        _xbar_bound(num, 8, s, s), None))
+    for n, dtype in ((512, torch.float32), (1024, torch.float32),
+                     (128, torch.bfloat16)):
+        a4, a3, w = (torch.randn((n, n), generator=gen, device=dev
+                                 ).to(dtype) for _ in range(3))
+        rows.append((
+            "schur_update", f"Schur n={n} {str(dtype)[6:]}",
+            lambda a4=a4, a3=a3, w=w: ops.schur_update(a4, a3, w),
+            lambda a4=a4, a3=a3, w=w: ref.schur_update_ref(a4, a3, w),
+            lambda a4=a4, a3=a3, w=w: torch.addmm(a4, a3, w, alpha=-1),
+            _schur_bound(n, n, n, 2 if dtype == torch.bfloat16 else 4),
+            None))
+
+    counters = {"crossbar_mvm": crossbar_mvm.crossbar_mvm,
+                "crossbar_mvm_batched": crossbar_mvm.crossbar_mvm_batched,
+                "schur_update": schur_gemm.schur_update}
+    for fn in counters.values():
+        fn.launches = 0
+    outs = []
+    for key, label, kernel, *_ in rows:      # the bench rows: check-run,
+        out = kernel()                       # then the timed runs
+        big = "1024" in label
+        ms = _time_ms(kernel, reps=7, per_batch=5 if big else 20)
+        outs.append((out, ms, _graph_ms(kernel)))
+    torch.cuda.synchronize()
+    launches = {key: fn.launches for key, fn in counters.items()}
+    print(f"  launches over the bench rows: {launches}")
+    for key, n_launch in launches.items():
+        if n_launch == 0:
+            _fail(f"the bench rows never launched {key}")
+    stats = {}
+    for (key, label, _, plain, library, (bound_ms, bound_by), bits), \
+            (out, ms, graph_ms) in zip(rows, outs):
+        want = plain()
+        if bits is None:
+            err = _check_close(label, out, want, KERNEL_REL_TOL)
+        else:
+            err = _check_one_step(label, out, want, 2.0 / (2 ** bits - 1))
+        plain_ms = _time_ms(plain, reps=5, per_batch=5)
+        plain_graph_ms = _graph_ms(plain)
+        lib_ms = lib_graph_ms = None
+        lib = ""
+        if library is not None:
+            lib_ms = _time_ms(library, reps=7, per_batch=20)
+            lib_graph_ms = _graph_ms(library)
+            lib = (f", torch.addmm {lib_ms:.4f} ms (graph "
+                   f"{lib_graph_ms:.4f})")
+        print(f"  kernel {ms:.4f} ms (graph {graph_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms (graph {plain_graph_ms:.4f}){lib}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
+              f"bound ({bound_ms / graph_ms:.2%} of graph time)")
+        stats.setdefault(key, {})[label] = dict(
+            err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+            plain_graph_ms=plain_graph_ms, library_ms=lib_ms,
+            library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+    return stats, launches
+
+
+def _check_one_step(what, out, ref, step, share=0.02):
+    """One converter, its input sum reassociated: outputs agree to
+    KERNEL_REL_TOL of max|ref|, but at most `share` of them may land one
+    ADC step away (an input within rounding of a bin edge)."""
+    err = (out.double() - ref.double()).abs()
+    scale = KERNEL_REL_TOL * float(ref.double().abs().max())
+    off = float((err > scale).double().mean())
+    print(f"  {what}: max abs err {float(err.max()):.3e} (step {step:.3e}),"
+          f" {off:.3%} of outputs a step away (limit {share:.0%})")
+    if not (float(err.max()) <= step * (1 + 1e-5) + scale and off <= share):
+        _fail(f"{what}: converter outputs disagree beyond one-step flips")
+    return float(err.max())
+
+
+class _Counted:
+    """A preconditioner that counts its applications."""
+
+    def __init__(self, prec):
+        self.prec, self.calls = prec, 0
+
+    def __call__(self, v):
+        self.calls += 1
+        return self.prec(v)
+
+
+def _example_phase(dev, svc, mid, a_svc):
+    """Phase 10: the example's path (`examples/solve_linear_system.py`) at
+    its own widths, with the hybrid benchmark's headline Krylov runs and
+    the Fig. 8 service's refined paths; returns the launch counts of the
+    arena and crossbar kernels."""
+    from repro_torch.core import area_energy, blockamc, distributed
+    from repro_torch.core.analog import AnalogConfig, map_tiled_vec
+    from repro_torch.core.metrics import relative_error
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.matrices import random_rhs, wishart, \
+        wishart_with_cond
+    from repro_torch.hybrid import (AnalogPreconditioner, gmres, krylov,
+                                    matvec_from_dense, pcg, solve_refined)
+    from repro_torch.kernels import arena_mvm, crossbar_mvm, ops, ref
+    print("phase 10: the example's path - distributed n=1024 stages=3 "
+          "128x128, programmed 256 two-stage 64x64 with 16 rhs, hybrid "
+          "refinement, crossbar check, area/energy")
+    arena_mvm.arena_packed_apply.launches = 0
+    crossbar_mvm.crossbar_mvm.launches = 0
+    krylov.any_active.reads = 0
+    data = torch.Generator().manual_seed(0)
+    n = 1024
+    a = wishart(data, n, device=dev)
+    b = random_rhs(data, n, device=dev)
+    x_true = torch.linalg.solve(a.double(), b.double())
+    for sigma in (0.0, 0.01, 0.05):
+        cfg = AnalogConfig(array_size=128,
+                           nonideal=NonidealConfig(sigma=sigma))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = distributed.solve_distributed(a, b, torch.Generator().manual_seed(
+            1), cfg, stages=3, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        err = float(relative_error(x_true, x.double()))
+        print(f"  distributed n={n} stages=3 sigma={sigma}: paper metric "
+              f"{err:.3e}, {wall:.3f} s wall")
+        if tuple(x.shape) != (n,) or not bool(torch.isfinite(x).all()):
+            _fail(f"distributed sigma={sigma}: wrong shape or non-finite")
+        if sigma == 0.0 and not err < DIST_IDEAL_TOL:
+            _fail(f"ideal distributed solve error {err:.3e} >= "
+                  f"{DIST_IDEAL_TOL:g}")
+
+    cfg64 = AnalogConfig(array_size=64, nonideal=NonidealConfig(sigma=0.05))
+    a256 = a[:256, :256].contiguous()
+    t0 = time.perf_counter()
+    solver = blockamc.ProgrammedSolver.program(
+        a256, torch.Generator().manual_seed(2), cfg64, 2, device=dev)
+    bs = torch.randn((256, 16), generator=torch.Generator().manual_seed(3)
+                     ).to(dev)
+    xs = solver.solve_many(bs)
+    torch.cuda.synchronize()
+    xs_ref = torch.linalg.solve(a256.double(), bs.double())
+    errs = relative_error(xs_ref.T, xs.double().T)
+    print(f"  programmed 256x256 two-stage solver, 16 rhs: median paper "
+          f"metric {float(errs.median()):.3f} ({solver.finalized.num_arrays}"
+          f" arrays; program + solve {time.perf_counter() - t0:.3f} s)")
+    if not bool(torch.isfinite(xs).all()):
+        _fail("programmed solver answered non-finite")
+    # the arena kernel at this program's shapes against the plain cascade
+    # (which launches nothing, so the counts below stay the path's own)
+    _check_close("programmed solve_many vs plain arena cascade", xs,
+                 blockamc.execute_arena(solver.arena, bs, use_kernel=False),
+                 SOLVE_REL_TOL)
+
+    precond = AnalogPreconditioner.from_solver(solver)
+    before = arena_mvm.arena_packed_apply.launches
+    reads0 = krylov.any_active.reads
+    t0 = time.perf_counter()
+    # the digital side in float64: at tol 1e-6 a float32 exit residual
+    # sits at its own rounding floor (~eps * sqrt(n) * cond) and may
+    # report a converged column as not converged
+    xs_refined, info = solve_refined(a256.double(), bs.double(), precond,
+                                     method="cg", tol=1e-6, maxiter=300,
+                                     use_precond=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs = relative_error(xs_ref.T, xs_refined.double().T)
+    refine_launches = arena_mvm.arena_packed_apply.launches - before
+    reads = krylov.any_active.reads - reads0
+    print(f"  hybrid refined (f32 analog seed + f64 CG, tol 1e-6): median "
+          f"paper metric "
+          f"{float(errs.median()):.3e}, median iters "
+          f"{int(info.iters.median())}, max {int(info.iters.max())}, all "
+          f"converged {bool(info.converged.all())}; {wall:.3f} s wall, "
+          f"{refine_launches} arena launch(es), {reads} host reads")
+    if not bool(info.converged.all()):
+        _fail("refined solve did not converge on every rhs")
+    if refine_launches != 1:
+        _fail(f"seed-only refinement launched the arena kernel "
+              f"{refine_launches} times, expected 1 (the seed)")
+
+    # the hybrid benchmark's headline: n=64, cond 1e4, float64 digital side
+    hl = torch.Generator().manual_seed(4)
+    a64 = wishart_with_cond(hl, 64, 1e4, dtype=torch.float64, device=dev)
+    b64 = random_rhs(hl, 64, dtype=torch.float64, device=dev)
+    mv = matvec_from_dense(a64)
+    plain = pcg(mv, b64, tol=1e-10, maxiter=4000)
+    for method, cfg in (
+            ("cg", AnalogConfig(array_size=32, opa_gain=1e5)),
+            ("gmres", AnalogConfig(array_size=32, nonideal=NonidealConfig(
+                sigma=1e-4, r_wire=1.0, compensate_wire=True)))):
+        prec = _Counted(AnalogPreconditioner.program(
+            a64.float(), torch.Generator().manual_seed(5), cfg, 1,
+            device=dev))
+        if prec.prec.aplan.program is None:
+            _fail(f"headline {method} plan is not uniform")
+        before = arena_mvm.arena_packed_apply.launches
+        reads0 = krylov.any_active.reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0 = prec(b64)
+        if method == "cg":
+            res = pcg(mv, b64, precond=prec, x0=x0, tol=1e-10, maxiter=4000)
+        else:
+            res = gmres(mv, b64, precond=prec, x0=x0, tol=1e-10, restart=16,
+                        maxiter=4000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = arena_mvm.arena_packed_apply.launches - before
+        reads = krylov.any_active.reads - reads0
+        _check_close(f"headline {method} seed vs plain arena cascade", x0,
+                     blockamc.execute_arena(prec.prec.aplan, b64.float(),
+                                            use_kernel=False),
+                     SOLVE_REL_TOL)
+        print(f"  headline preconditioned {method}: {int(res.iters)} iters "
+              f"(plain CG {int(plain.iters)}), resnorm "
+              f"{float(res.resnorm):.2e}, converged {bool(res.converged)}; "
+              f"{prec.calls} preconditioner applications, {launched} arena "
+              f"launches, {reads} host reads, {wall * 1e3:.1f} ms wall")
+        if not bool(res.converged):
+            _fail(f"headline {method} did not converge")
+        if launched != prec.calls:
+            _fail(f"headline {method}: {launched} arena launches for "
+                  f"{prec.calls} preconditioner applications")
+
+    # the example's crossbar check on a mapped 256x256 tile grid
+    cfg128 = AnalogConfig(array_size=128, nonideal=NonidealConfig(sigma=0.05))
+    scale = 1.0 / torch.max(torch.abs(a))
+    grid = map_tiled_vec(a256, torch.Generator().manual_seed(6), cfg128,
+                         scale)
+    gpos = grid.gpos.reshape(-1, 256)[:256]
+    gneg = grid.gneg.reshape(-1, 256)[:256]
+    v = random_rhs(data, 256, device=dev)[None, :]
+    out_kernel = ops.crossbar_mvm(v, gpos, gneg, g0=cfg128.g0, dac_bits=8,
+                                  adc_bits=8)
+    out_ref = ref.crossbar_mvm_ref(v, gpos, gneg, g0=cfg128.g0, dac_bits=8,
+                                   adc_bits=8)
+    torch.cuda.synchronize()
+    _check_one_step("example crossbar_mvm vs plain version", out_kernel,
+                    out_ref, 2.0 / (2 ** 8 - 1))
+
+    # the Fig. 8 service's refined paths, on tenant `mid` (matrix a_svc)
+    st0 = dataclasses.replace(svc.stats(mid))
+    rhs = torch.rand((256, 4), generator=torch.Generator().manual_seed(7)
+                     ).to(dev) * 2 - 1
+    t0 = time.perf_counter()
+    x_one = svc.solve_refined(mid, rhs[:, :2])
+    for j in range(2, 4):
+        svc.submit(mid, rhs[:, j])
+    x_flush = svc.flush(mid, refined=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x_svc = torch.cat([x_one, x_flush], dim=1)
+    x64 = torch.linalg.solve(a_svc.double(), rhs.double())
+    err = float(relative_error(x64.T, x_svc.double().T).max())
+    st = svc.stats(mid)
+    print(f"  service {mid}: solve_refined (2 rhs) + flush(refined=True) "
+          f"(2 rhs): paper metric {err:.3e} vs float64, refined_calls "
+          f"{st0.refined_calls}->{st.refined_calls}, refine_iters "
+          f"{st0.refine_iters}->{st.refine_iters}; {wall * 1e3:.1f} ms wall")
+    if st.refined_calls != st0.refined_calls + 2 or not err < REFINED_TOL:
+        _fail(f"service refined paths: {st.refined_calls} calls, error "
+              f"{err:.3e} (limit {REFINED_TOL:g})")
+
+    sav = area_energy.savings(area_energy.report())
+    print(f"  hardware verdict (512x512): one-stage saves "
+          f"{sav['area']['one_stage']:.1%} area / "
+          f"{sav['power']['one_stage']:.1%} power, two-stage "
+          f"{sav['area']['two_stage']:.1%} / {sav['power']['two_stage']:.1%}"
+          f" vs a monolithic AMC")
+    torch.cuda.synchronize()
+    counts = {"arena_packed_apply": arena_mvm.arena_packed_apply.launches,
+              "crossbar_mvm": crossbar_mvm.crossbar_mvm.launches}
+    print(f"  launches on the example's path: {counts}; host reads of the "
+          f"Krylov loops {krylov.any_active.reads}")
+    if counts["crossbar_mvm"] != 1 or counts["arena_packed_apply"] == 0:
+        _fail(f"example path launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -621,6 +1030,14 @@ def main() -> int:
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
     serve_banded, serve_arena, _ = _nodal_serving_phase(dev)
 
+    # -- 9-10. slice 3: the kernel bench's rows, the example's path ----------
+    t0 = time.perf_counter()
+    bench_stats, bench_launches = _bench_phase(dev)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    example_launches = _example_phase(dev, svc, ids[0], mats[0])
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -637,7 +1054,9 @@ def main() -> int:
         "library_ms": None,
         "launches_by_path": {"main path (flush_all + flush)": main_launches,
                              "per-level (n=1024)": level_launches,
-                             "nodal serving (flush_all)": serve_arena},
+                             "nodal serving (flush_all)": serve_arena,
+                             "example path (phase 10)":
+                                 example_launches["arena_packed_apply"]},
     }]
     solver = banded_stats["solver path"]
     kernels.append({
@@ -659,6 +1078,36 @@ def main() -> int:
                    for label, st in banded_stats.items()
                    if isinstance(st, dict)},
     })
+    rows = {"crossbar_mvm": ("crossbar (512,1024,1024) 8-bit",
+                             "src/repro/kernels/crossbar_mvm.py:82"),
+            "crossbar_mvm_batched": ("batched (16,128,128,128) 8-bit",
+                                     "src/repro/kernels/crossbar_mvm.py:150"),
+            "schur_update": ("Schur n=1024 float32",
+                             "src/repro/kernels/schur_gemm.py:46")}
+    for name, (headline_row, replaces) in rows.items():
+        st = bench_stats[name][headline_row]
+        by_path = {"kernel bench rows (phase 9)": bench_launches[name]}
+        if name == "crossbar_mvm":
+            by_path["example crossbar check (phase 10)"] = \
+                example_launches["crossbar_mvm"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/schur_gemm.cu"
+                       if name == "schur_update" else
+                       "src/repro_torch/kernels/csrc/crossbar_mvm.cu"),
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "max_abs_err": st["err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"],
+            "library_ms": st["library_ms"],
+            "graph_ms": st["graph_ms"],
+            "launches_by_path": by_path,
+            "shapes": bench_stats[name],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

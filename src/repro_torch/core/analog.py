@@ -10,8 +10,10 @@ onto two differential arrays of unit conductance G0, each with its own
 device noise.
 
 Random draws: `map_matrix` draws the positive array's noise first, then
-the negative array's; `map_tiled` maps its tiles row-major.  One
-`torch.Generator` is consumed in that order.  Given a sequence of
+the negative array's; `map_tiled` maps its tiles row-major;
+`map_tiled_vec` draws its whole positive stack, then its whole negative
+stack; `map_matrix_sliced` draws slice by slice, positive before negative.
+One `torch.Generator` is consumed in that order.  Given a sequence of
 generators instead - one per Monte-Carlo simulation, the counterpart of
 the reference's `vmap` over keys - the programmed pairs carry a leading
 simulation axis (S, r, c), each simulation draws from its own generator in
@@ -178,6 +180,52 @@ def amc_inv(pair: CrossbarPair, v_in: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Bit-sliced mapping (ISAAC-style; beyond-paper precision extension)
+# ---------------------------------------------------------------------------
+
+def map_matrix_sliced(a_block: torch.Tensor, generator: torch.Generator,
+                      cfg: AnalogConfig, scale: torch.Tensor,
+                      n_slices: int = 2, bits_per_slice: int = 4):
+    """Map one signed block as `n_slices` arrays of `bits_per_slice` each.
+
+    Each slice stores a quantised digit of the target conductance at full
+    dynamic range (re-normalised to G0), so the per-device absolute noise
+    sigma*G0 is divided by the slice weight on recombination.  Returns a
+    list of (CrossbarPair, weight); `amc_mvm_sliced` recombines digitally.
+    Each slice draws its positive array's noise, then its negative one's.
+    """
+    a_norm = a_block * scale
+    levels = 2 ** bits_per_slice
+    pairs = []
+    residual_pos = torch.clamp_min(a_norm, 0.0)
+    residual_neg = torch.clamp_min(-a_norm, 0.0)
+    sigma_g = cfg.nonideal.sigma * cfg.g0
+    for s in range(n_slices):
+        weight = float(levels) ** (-s)
+        # digit in [0, 1): quantise the residual at this significance
+        dig_p = torch.floor(torch.clamp(residual_pos / weight, 0, 1 - 1e-9)
+                            * levels) / levels
+        dig_n = torch.floor(torch.clamp(residual_neg / weight, 0, 1 - 1e-9)
+                            * levels) / levels
+        residual_pos = residual_pos - dig_p * weight
+        residual_neg = residual_neg - dig_n * weight
+        gpos = nonideal.apply_variation(dig_p * cfg.g0, generator, sigma_g)
+        gneg = nonideal.apply_variation(dig_n * cfg.g0, generator, sigma_g)
+        pairs.append((CrossbarPair(gpos, gneg, scale, cfg.g0), weight))
+    return pairs
+
+
+def amc_mvm_sliced(pairs, v_in: torch.Tensor,
+                   cfg: AnalogConfig) -> torch.Tensor:
+    """MVM over bit-sliced arrays; digital shift-add recombination."""
+    out = None
+    for pair, weight in pairs:
+        part = amc_mvm(pair, v_in, cfg) * weight
+        out = part if out is None else out + part
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Partitioned MVM for blocks larger than one physical array
 # ---------------------------------------------------------------------------
 
@@ -259,3 +307,36 @@ def stack_pairs(pairs, scale, g0) -> TileGrid:
     tile axis is -3: a simulation axis of the pairs stays in front)."""
     return TileGrid(torch.stack([p.gpos for p in pairs], dim=-3),
                     torch.stack([p.gneg for p in pairs], dim=-3), scale, g0)
+
+
+def map_tiled_vec(a: torch.Tensor, generator: torch.Generator,
+                  cfg: AnalogConfig, scale: torch.Tensor) -> TileGrid:
+    """Map an (R x C) matrix onto an (rt, ct, s, s) tile tensor.
+
+    R and C must be multiples of cfg.array_size (`map_tiled` handles
+    ragged shapes).  Leading axes of `a` stay in front of the tile axes: a
+    (nb, R, C) stack of blocks maps to (nb, rt, ct, s, s) in one call.
+    Runs the shared programming pipeline: the two target stacks are
+    write-verified together (`nonideal.write_verified`), then `generator`
+    draws the whole positive stack's noise and the whole negative stack's,
+    each in `nonideal.device_draws` order.
+    """
+    s = cfg.array_size
+    rows, cols = a.shape[-2:]
+    if rows % s or cols % s:
+        raise ValueError(f"map_tiled_vec needs multiples of the array size "
+                         f"{s}, got {(rows, cols)}")
+    rt, ct = rows // s, cols // s
+    lead = tuple(a.shape[:-2])
+    tiles = a.reshape(lead + (rt, s, ct, s)).transpose(-3, -2)
+    a_norm = tiles * scale
+    targets = torch.stack([torch.clamp_min(a_norm, 0.0) * cfg.g0,
+                           torch.clamp_min(-a_norm, 0.0) * cfg.g0])
+    ni = cfg.nonideal
+    written = nonideal.write_verified(targets, ni)
+    g = [nonideal.apply_device_draws(
+        written[i], targets[i],
+        *nonideal.device_draws(targets.shape[1:], generator, ni,
+                               targets.dtype), ni, cfg.g0)
+         for i in range(2)]                       # positive, negative
+    return TileGrid(g[0], g[1], scale, cfg.g0)

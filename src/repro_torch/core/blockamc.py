@@ -1061,6 +1061,14 @@ class ProgrammedSolver:
         return self._arena
 
     @property
+    def finalized(self) -> FinalizedPlan:
+        return self._fin
+
+    @property
+    def mode(self) -> str:
+        return self._mode
+
+    @property
     def cfg(self) -> AnalogConfig:
         return self._fin.cfg
 

@@ -17,8 +17,17 @@ conductance stacks plus its static schedule.  The format is one dict:
     }
 
 which is `FlatPlan`'s fields with every TileGrid given as its two
-conductance arrays.  Lists are accepted where tuples are shown.  This
-module sees numpy and torch only.
+conductance arrays.  Lists are accepted where tuples are shown.  A
+tile-solver plan (`core/distributed.py`'s `DistPlan`) comes across as
+
+    {
+      "stages": int, "g0": float, "scale": float or 0-d array,
+      "mvm2":   per level, (gpos, gneg), each (2^level, rt, ct, s, s),
+      "mvm3":   the same for the A3 blocks,
+      "leaves": (gpos, gneg), each (2^stages, rt, ct, s, s),
+    }
+
+This module sees numpy and torch only.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 
 from repro_torch.core.analog import AnalogConfig, TileGrid
 from repro_torch.core.blockamc import FlatPlan, ProgrammedSolver
+from repro_torch.core.distributed import DistPlan
 from repro_torch.device import resolve_device
 
 
@@ -59,3 +69,20 @@ def solver_from_numpy(d: dict, cfg: AnalogConfig,
                       device="cuda") -> ProgrammedSolver:
     """A ProgrammedSolver over a plan carried in the dict format above."""
     return ProgrammedSolver.from_plan(flat_plan_from_numpy(d, device), cfg)
+
+
+def dist_plan_from_numpy(d: dict, device="cuda") -> DistPlan:
+    """Build a tile-solver DistPlan on `device` from the dict format
+    above."""
+    dev = resolve_device(device)
+    scale = torch.tensor(np.asarray(d["scale"]), device=dev)
+
+    def grid(pair):
+        gp, gn = pair
+        return TileGrid(torch.tensor(np.asarray(gp), device=dev),
+                        torch.tensor(np.asarray(gn), device=dev), scale,
+                        float(d["g0"]))
+
+    return DistPlan([grid(p) for p in d["mvm2"]],
+                    [grid(p) for p in d["mvm3"]], grid(d["leaves"]), scale,
+                    int(d["stages"]))

@@ -5,6 +5,11 @@ versions.
                   reference's Pallas kernel `repro/kernels/arena_mvm.py`)
   banded_solve  - the block-Thomas sweeps of the nodal wire model
                   (replaces `repro/kernels/banded_solve.py`)
+  crossbar_mvm  - the differential crossbar MVM with fused converters,
+                  single array and stacked (replaces
+                  `repro/kernels/crossbar_mvm.py`)
+  schur_gemm    - the fused Schur-complement update A4 - A3 @ W
+                  (replaces `repro/kernels/schur_gemm.py`)
 
 Use `repro_torch.kernels.ops` for the public entry points (a CPU tensor
 runs the plain version in `ref.py`, a CUDA tensor launches the kernel) and

@@ -3,8 +3,8 @@ library, bound with ctypes).
 
 Every source in `csrc/` is compiled for sm_90a by its own `nvcc`, all
 started together, into `build/` beside this file (listed in .gitignore).
-A library's file name carries a hash of its source and flags, so a stale
-build is never loaded.  Nothing is built at import time: `load` builds on
+A library's file name carries a hash of its source, the shared headers
+(`csrc/*.cuh`) and the flags, so a stale build is never loaded.  Nothing is built at import time: `load` builds on
 first use.
 """
 from __future__ import annotations
@@ -38,7 +38,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 

@@ -29,11 +29,8 @@
 // it writes; no atomics anywhere, because the tiles of one MVM tile-row add
 // into one window and must do so in schedule order.
 //
-// Quantisation follows core/quantization.py exactly: clip, divide by `step`
-// (IEEE division: no reciprocal, no fast math), rintf (round half to even,
-// like torch.round / jnp.round), multiply by `step`.  bits <= 0 is an ideal
-// converter.  The step is computed once on the host in double, as the
-// reference's Python arithmetic does.
+// Quantisation is `quantize` of quantize.cuh (shared with crossbar_mvm.cu):
+// clip, IEEE divide by the step, round half to even, multiply back.
 //
 // What bounds it.  Per call the operators are 4*M*T*R*C bytes and the
 // products 2*M*T*R*C*K flops.  At the serving main path (M=16, T=23,
@@ -48,16 +45,11 @@
 
 #include <cuda_runtime.h>
 
+#include "quantize.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float quantize(float v, int bits, float step,
-                                          float fs) {
-  if (bits <= 0) return v;
-  v = v < -fs ? -fs : (v > fs ? fs : v);  // propagates NaN like clamp
-  return rintf(v / step) * step;
-}
 
 template <int KB>
 __global__ void __launch_bounds__(kThreads) arena_packed_kernel(

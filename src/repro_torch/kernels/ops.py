@@ -1,12 +1,14 @@
 """Public kernel entry points, with the dtype policies of
 `repro/kernels/ops.py`: the arena program computes in f32 and returns the
 arena's dtype; the block-Thomas sweeps keep their input dtype, float64
-included.
+included; the crossbar MVM and the Schur update take float32 or bfloat16
+inputs and return float32.
 
 A tensor on the CPU runs the plain version (`ref.py`); a tensor on the
 card launches the hand-written kernel, or raises - there is no fallback
 for CUDA tensors.  The CUDA kernels mask their own edges (the rhs axis K,
-the block size s), so nothing is padded; arena offsets and tile dims are
+the block size s, every axis of the crossbar and Schur products), so
+nothing is padded to the TPU's 128 lanes; arena offsets and tile dims are
 positions and are never padded either.
 """
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 
 from repro_torch.kernels import arena_mvm as _arena
 from repro_torch.kernels import banded_solve as _banded
+from repro_torch.kernels import crossbar_mvm as _xbar
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import schur_gemm as _schur
 
 
 def arena_packed_apply(arena, ops, in_offs, in_signs, out_offs, out_init, *,
@@ -71,3 +75,63 @@ def block_tridiag_solve(minv, rhs, *, gw: float):
     return _banded.block_tridiag_solve(
         minv.to(device=rhs.device, dtype=dtype).contiguous(),
         rhs.to(dtype).contiguous(), gw=gw)
+
+
+def _kernel_dtype(*tensors) -> torch.dtype:
+    """bfloat16 if every tensor is bfloat16, else float32: the types the
+    crossbar and Schur kernels take (bfloat16 widens to float32 exactly).
+    Any other type raises, on the host as on the card."""
+    for x in tensors:
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the crossbar and Schur kernels take float32 "
+                             f"or bfloat16, got {x.dtype}")
+    if all(x.dtype == torch.bfloat16 for x in tensors):
+        return torch.bfloat16
+    return torch.float32
+
+
+def _crossbar(launch, plain, v, gpos, gneg, **kw):
+    """The crossbar entries' dispatch: the plain version for a CPU tensor,
+    else the kernel on float32 / bfloat16 copies where needed."""
+    vdt, gdt = _kernel_dtype(v), _kernel_dtype(gpos, gneg)
+    if v.device.type == "cpu":
+        return plain(v, gpos, gneg, **kw)
+    if v.device.type != "cuda":
+        raise ValueError(f"no crossbar kernel for device {v.device}")
+    return launch(v.to(vdt).contiguous(),
+                  gpos.to(device=v.device, dtype=gdt).contiguous(),
+                  gneg.to(device=v.device, dtype=gdt).contiguous(), **kw)
+
+
+def crossbar_mvm(v, gpos, gneg, *, g0: float, dac_bits=None,
+                 adc_bits=None, fullscale: float = 1.0):
+    """Differential crossbar MVM (see `kernels/crossbar_mvm.py`):
+    v (B, C), gpos/gneg (R, C) -> (B, R) float32, any shapes; float32 or
+    bfloat16 in (any other type raises)."""
+    return _crossbar(_xbar.crossbar_mvm, _ref.crossbar_mvm_ref, v, gpos,
+                     gneg, g0=g0, dac_bits=dac_bits, adc_bits=adc_bits,
+                     fullscale=fullscale)
+
+
+def crossbar_mvm_batched(v, gpos, gneg, *, g0: float, dac_bits=None,
+                         adc_bits=None, fullscale: float = 1.0):
+    """The crossbar MVM over a stack of L physical arrays, one launch:
+    v (L, B, C), gpos/gneg (L, R, C) -> (L, B, R) float32."""
+    return _crossbar(_xbar.crossbar_mvm_batched,
+                     _ref.crossbar_mvm_batched_ref, v, gpos, gneg, g0=g0,
+                     dac_bits=dac_bits, adc_bits=adc_bits,
+                     fullscale=fullscale)
+
+
+def schur_update(a4, a3, w):
+    """Fused A4 - A3 @ W (see `kernels/schur_gemm.py`): a4 (I, J),
+    a3 (I, K), w (K, J) -> (I, J) float32, any shapes; float32 or
+    bfloat16 in (any other type raises)."""
+    dtype = _kernel_dtype(a4, a3, w)
+    if a4.device.type == "cpu":
+        return _ref.schur_update_ref(a4, a3, w)
+    if a4.device.type != "cuda":
+        raise ValueError(f"no Schur kernel for device {a4.device}")
+    dev = a4.device
+    return _schur.schur_update(
+        *(x.to(device=dev, dtype=dtype).contiguous() for x in (a4, a3, w)))

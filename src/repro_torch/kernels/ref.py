@@ -67,3 +67,36 @@ def block_tridiag_solve_ref(minv, rhs, *, gw):
         x = zs[i] + gw * (minv[:, i] @ x)
         xs[i] = x
     return torch.stack(xs, dim=1)
+
+
+def crossbar_mvm_ref(v, gpos, gneg, *, g0, dac_bits=None, adc_bits=None,
+                     fullscale=1.0):
+    """Plain version of the differential crossbar MVM:
+    out[b, r] = ADC(-(sum_c (gpos - gneg)[r, c] * DAC(v[b, c])) / g0).
+
+    v (B, C), gpos/gneg (R, C) -> (B, R) float32.  v is widened before the
+    DAC; the difference is taken in the conductances' dtype, then widened.
+    Divides by g0, as the reference's oracle does (the kernel multiplies by
+    a float32 1/g0), through a tensor so no backend swaps in a reciprocal.
+    """
+    vq = quantize(v.to(torch.float32), dac_bits, fullscale)
+    g = (gpos - gneg).to(torch.float32)
+    out = -(vq @ g.T) / torch.full((), g0, dtype=torch.float32,
+                                   device=vq.device)
+    return quantize(out, adc_bits, fullscale)
+
+
+def crossbar_mvm_batched_ref(v, gpos, gneg, *, g0, dac_bits=None,
+                             adc_bits=None, fullscale=1.0):
+    """Plain version of the crossbar MVM over a stack of L arrays, as one
+    batched product: v (L, B, C), gpos/gneg (L, R, C) -> (L, B, R)."""
+    vq = quantize(v.to(torch.float32), dac_bits, fullscale)
+    g = (gpos - gneg).to(torch.float32)
+    out = -torch.bmm(vq, g.transpose(1, 2)) / torch.full(
+        (), g0, dtype=torch.float32, device=vq.device)
+    return quantize(out, adc_bits, fullscale)
+
+
+def schur_update_ref(a4, a3, w):
+    """Plain version of the fused Schur update: A4 - A3 @ W in float32."""
+    return a4.to(torch.float32) - a3.to(torch.float32) @ w.to(torch.float32)

@@ -13,8 +13,10 @@ power-of-two width, and the whole bucket runs as ONE
 in two phases: every bucket is solved before any queue or counter changes,
 so a failure leaves the service exactly as it was.
 
-The hybrid paths (`solve_refined`, `solve_fallback`, `flush(refined=True)`)
-wait for the port of the Krylov layer and raise NotImplementedError.
+The hybrid paths - `solve_refined` and `flush(refined=True)` (analog seed
+from the programmed arrays, Krylov refinement against the digital copy the
+service keeps of each matrix) and `solve_fallback` (digital only) - count
+their calls and Krylov iterations in `MatrixStats`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from repro_torch.core.blockamc import (PackedArenaPlan, ProgrammedSolver,
                                        pack_arena_plans, pad_rhs_pow2,
                                        plan_signature)
 from repro_torch.device import resolve_device
+from repro_torch.hybrid import AnalogPreconditioner, KrylovResult
+from repro_torch.hybrid import solve_fallback as _solve_fallback
+from repro_torch.hybrid import solve_refined as _solve_refined
 
 
 def _require_float(name: str, arr) -> None:
@@ -51,19 +56,13 @@ def _host(x) -> np.ndarray:
     return np.array(x)
 
 
-def _hybrid_slice(what: str):
-    return NotImplementedError(
-        f"{what} needs the hybrid Krylov layer, which repro_torch does not "
-        f"port yet")
-
-
 @dataclasses.dataclass
 class MatrixStats:
     """Per-programmed-matrix serving counters."""
     program_time_s: float        # programming cost, paid once
     solve_calls: int = 0         # fused solve invocations
     rhs_served: int = 0          # individual right-hand sides solved
-    refined_calls: int = 0       # hybrid refine calls (none until ported)
+    refined_calls: int = 0       # hybrid refine / fallback calls
     refine_iters: int = 0        # digital Krylov iterations spent
 
 
@@ -172,12 +171,17 @@ class SolverService:
     def matrix_ids(self):
         return tuple(self._solvers)
 
-    def _record(self, matrix_id: str, n_rhs: int) -> None:
+    def _record(self, matrix_id: str, n_rhs: int,
+                info: Optional[KrylovResult] = None) -> None:
         """The one per-tenant bookkeeping path: one fused solve call of
-        `n_rhs` right-hand sides."""
+        `n_rhs` right-hand sides, and, for a refined or fallback call, its
+        Krylov iterations."""
         st = self._stats[matrix_id]
         st.solve_calls += 1
         st.rhs_served += n_rhs
+        if info is not None:
+            st.refined_calls += 1
+            st.refine_iters += int(info.iters.sum())
 
     def solve(self, matrix_id: str, b) -> torch.Tensor:
         """Immediate solve of one (n,) rhs or an (n, k) batch."""
@@ -186,11 +190,48 @@ class SolverService:
         self._record(matrix_id, 1 if b.ndim == 1 else b.shape[1])
         return x
 
-    def solve_refined(self, matrix_id: str, b, **kw):
-        raise _hybrid_slice("solve_refined")
+    def solve_refined(self, matrix_id: str, b, *, tol: float = 1e-6,
+                      method: str = "cg", maxiter: int = 400,
+                      restart: int = 32,
+                      use_precond: bool = False) -> torch.Tensor:
+        """Hybrid solve of one (n,) rhs or an (n, k) batch: the analog seed
+        from the programmed arrays, then digital Krylov refinement against
+        the stored matrix to `tol` relative residual.
 
-    def solve_fallback(self, matrix_id: str, b, **kw):
-        raise _hybrid_slice("solve_fallback")
+        use_precond=False (default) refines from the seed only, which
+        always converges on the digital side whatever the programming
+        noise; True also applies the arrays as the Krylov preconditioner -
+        faster when noise x condition is small, but a strongly perturbed
+        inverse can stall CG, so it is opt-in.
+        """
+        b = torch.as_tensor(b, device=self.device)
+        x, info = self._refine(matrix_id, b, tol=tol, method=method,
+                               maxiter=maxiter, restart=restart,
+                               use_precond=use_precond)
+        self._record(matrix_id, 1 if b.ndim == 1 else b.shape[1], info)
+        return x
+
+    def solve_fallback(self, matrix_id: str, b, *, tol: float = 1e-6,
+                       method: str = "cg", maxiter: int = 800,
+                       restart: int = 32) -> torch.Tensor:
+        """Digital-only solve against the stored matrix (the degraded
+        mode): the programmed arrays are not touched, so it answers
+        correctly however faulted they are.  Counted as a refined call."""
+        b = torch.as_tensor(b, device=self.device)
+        x, info = _solve_fallback(self._dense[matrix_id], b, method=method,
+                                  tol=tol, maxiter=maxiter, restart=restart,
+                                  device=self.device)
+        self._record(matrix_id, 1 if b.ndim == 1 else b.shape[1], info)
+        return x
+
+    def _refine(self, matrix_id: str, b: torch.Tensor, *,
+                tol: float = 1e-6, method: str = "cg", maxiter: int = 400,
+                restart: int = 32, use_precond: bool = False):
+        """Stats-free refine core shared by solve_refined and flush."""
+        precond = AnalogPreconditioner.from_solver(self._solvers[matrix_id])
+        return _solve_refined(self._dense[matrix_id], b, precond,
+                              method=method, tol=tol, maxiter=maxiter,
+                              restart=restart, use_precond=use_precond)
 
     def submit(self, matrix_id: str, b) -> int:
         """Queue one (n,) rhs for the next flush; returns its queue slot.
@@ -222,27 +263,43 @@ class SolverService:
         self._queues[matrix_id] = []
         return k
 
-    def _solve_queue(self, matrix_id: str) -> torch.Tensor:
-        """One tenant's queue as one (n, k) upload and one `solve_many`."""
-        bs = torch.as_tensor(np.stack(self._queues[matrix_id], axis=1),
-                             device=self.device)
-        return self._solvers[matrix_id].solve_many(bs)
+    def _stack_queue(self, matrix_id: str) -> torch.Tensor:
+        """One tenant's queue as one (n, k) upload."""
+        return torch.as_tensor(np.stack(self._queues[matrix_id], axis=1),
+                               device=self.device)
 
-    def flush(self, matrix_id: str, *, refined: bool = False
-              ) -> torch.Tensor:
+    def _solve_queue(self, matrix_id: str) -> torch.Tensor:
+        """One tenant's queue as one upload and one `solve_many`."""
+        return self._solvers[matrix_id].solve_many(
+            self._stack_queue(matrix_id))
+
+    def flush(self, matrix_id: str, *, refined: bool = False,
+              **refine_kw) -> torch.Tensor:
         """Solve all queued right-hand sides in one call; returns (n, k),
         column j answering the j-th submit since the last flush ((n, 0)
-        for an empty queue)."""
-        if refined:
-            raise _hybrid_slice("flush(refined=True)")
+        for an empty queue).
+
+        refined=True answers the batch through the analog-seed -> Krylov
+        path instead (`solve_refined`'s; `refine_kw` forwards tol, method,
+        maxiter, restart, use_precond).  The batch is zero-padded to a
+        power of two there too: the padding columns start converged and
+        add no iterations.
+        """
         q = self._queues[matrix_id]
         solver = self._solvers[matrix_id]
         if not q:
             return torch.zeros((solver.n, 0),
                                dtype=self._dense[matrix_id].dtype,
                                device=self.device)
-        xs = self._solve_queue(matrix_id)
-        self._record(matrix_id, len(q))
+        k = len(q)
+        if refined:
+            bs, _ = pad_rhs_pow2(self._stack_queue(matrix_id))
+            xs_full, info = self._refine(matrix_id, bs, **refine_kw)
+            xs = xs_full[:, :k]
+            self._record(matrix_id, k, info)
+        else:
+            xs = self._solve_queue(matrix_id)
+            self._record(matrix_id, k)
         self._queues[matrix_id] = []    # only drop requests once answered
         return xs
 

@@ -36,6 +36,17 @@ def flat_plan_dict(fp) -> dict:
     }
 
 
+def dist_plan_dict(plan) -> dict:
+    """A JAX DistPlan in `repro_torch.interop`'s dict format."""
+    def pair(g):
+        return np.asarray(g.gpos), np.asarray(g.gneg)
+    return {"stages": plan.stages, "g0": plan.leaves.g0,
+            "scale": np.asarray(plan.scale),
+            "mvm2": [pair(g) for g in plan.mvm2],
+            "mvm3": [pair(g) for g in plan.mvm3],
+            "leaves": pair(plan.leaves)}
+
+
 def t(x, dtype=None) -> torch.Tensor:
     """A CPU tensor from a JAX or numpy array (copied)."""
     out = torch.from_numpy(np.array(x))
@@ -55,6 +66,19 @@ def scaled_close(actual, expected, rel):
     bound = rel * max(float(np.max(np.abs(expected))), 1e-30)
     err = float(np.max(np.abs(actual - expected)))
     assert err <= bound, f"max abs err {err:.3g} > {bound:.3g}"
+
+
+def one_step_close(actual, expected, step, share=0.02):
+    """One converter, its input sums reassociated: outputs agree to 1e-5 of
+    max|expected|, except that at most `share` of them may land one ADC
+    step away (an input within rounding of a bin edge)."""
+    actual, expected = np.asarray(actual), np.asarray(expected)
+    err = np.abs(actual - expected)
+    scale = 1e-5 * max(float(np.max(np.abs(expected))), 1e-30)
+    assert float(err.max()) <= step * (1 + 1e-5) + scale, \
+        f"max abs err {err.max():.3g} beyond one step {step:.3g}"
+    assert (err > scale).mean() <= share, \
+        f"{(err > scale).mean():.2%} of outputs a step away"
 
 
 def quantized_close(actual, expected, step):

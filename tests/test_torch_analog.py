@@ -214,3 +214,67 @@ def test_configs_carry_every_field():
     assert [f.name for f in dataclasses.fields(jni.NonidealConfig)] == \
         [f.name for f in dataclasses.fields(tni.NonidealConfig)]
     assert torch_cfg(jcfg) == tanalog.IDEAL_CFG
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(nonideal=dict(
+    r_wire=1.0, compensate_wire=True))])
+def test_map_tiled_vec_at_sigma0_matches_jax_exactly(kw):
+    """The stacked-tile mapping programs the same conductances bit for bit
+    at sigma=0 (no draws); with first-order write-verify, to f32
+    rounding."""
+    jcfg, tcfg = _cfgs(kw)
+    a = RNG.normal(size=(16, 24)).astype(np.float32)
+    scale = np.float32(1.0 / np.abs(a).max())
+    jg = janalog.map_tiled_vec(jnp.asarray(a), jax.random.PRNGKey(0), jcfg,
+                               jnp.asarray(scale))
+    tg = tanalog.map_tiled_vec(t(a), torch.Generator(), tcfg,
+                               torch.tensor(scale))
+    assert tg.shape == tuple(jg.shape) == (2, 3, 8, 8)
+    if not kw:
+        assert np.array_equal(tg.gpos.numpy(), np.asarray(jg.gpos))
+        assert np.array_equal(tg.gneg.numpy(), np.asarray(jg.gneg))
+    else:
+        _rel(tg.gpos, jg.gpos)
+        _rel(tg.gneg, jg.gneg)
+    close(tg.a_eff(tcfg), jg.a_eff(jcfg), rtol=1e-5, atol=1e-6)
+    # a stack of blocks maps block by block, leading axis in front
+    stacked = tanalog.map_tiled_vec(t(np.stack([a, -a])), torch.Generator(),
+                                    tcfg, torch.tensor(scale))
+    assert stacked.shape == (2, 2, 3, 8, 8)
+    assert torch.equal(stacked.gpos[0], tg.gpos)
+    assert torch.equal(stacked.gneg[1], tg.gpos)
+    with pytest.raises(ValueError, match="multiples"):
+        tanalog.map_tiled_vec(t(a[:, :20]), torch.Generator(), tcfg,
+                              torch.tensor(scale))
+
+
+def test_map_tiled_vec_noise_draw_order():
+    """The positive stack's normals are drawn first, then the negative
+    stack's, from the one generator."""
+    tcfg = tanalog.AnalogConfig(array_size=8,
+                                nonideal=tni.NonidealConfig(sigma=0.05))
+    a = t(RNG.normal(size=(16, 16)).astype(np.float32))
+    tg = tanalog.map_tiled_vec(a, torch.Generator().manual_seed(4), tcfg,
+                               torch.tensor(1.0))
+    gen = torch.Generator().manual_seed(4)
+    n_pos = torch.randn((2, 2, 8, 8), generator=gen)
+    tiles = a.reshape(2, 8, 2, 8).transpose(1, 2)
+    want = torch.clamp_min(torch.clamp_min(tiles, 0.0) * G0
+                           + 0.05 * G0 * n_pos, 0.0)
+    close(tg.gpos, want, rtol=1e-6, atol=1e-12)
+
+
+def test_sliced_mapping_at_sigma0_matches_jax():
+    jcfg, tcfg = _cfgs({})
+    a, v = _pair_inputs(8, 8, 3)
+    jp = janalog.map_matrix_sliced(jnp.asarray(a), jax.random.PRNGKey(0),
+                                   jcfg, jnp.float32(1.0), n_slices=3)
+    tp = tanalog.map_matrix_sliced(t(a), torch.Generator(), tcfg,
+                                   torch.tensor(1.0), n_slices=3)
+    assert [w for _, w in tp] == [w for _, w in jp]
+    for (tpair, _), (jpair, _) in zip(tp, jp):
+        _rel(tpair.gpos, jpair.gpos)
+        _rel(tpair.gneg, jpair.gneg)
+    close(tanalog.amc_mvm_sliced(tp, t(v), tcfg),
+          janalog.amc_mvm_sliced(jp, jnp.asarray(v), jcfg),
+          rtol=1e-5, atol=1e-6)

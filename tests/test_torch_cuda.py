@@ -12,7 +12,9 @@ against the plain path at 1e-4 of max|x| (the same sums, cascaded).  The
 block-Thomas kernel against its plain version: 1e-5 of max|out| in
 float32 and 1e-12 in float64 on well-conditioned random factor stacks
 (real nodal factor stacks amplify rounding; chip_smoke.py holds the
-kernel to a float64 evaluation there).
+kernel to a float64 evaluation there).  The crossbar kernel: 1e-5 of
+max|out| ideal, at most one ADC step on at most 2% of outputs with
+converters (`one_step_close`); the Schur kernel: 1e-5 of max|out|.
 """
 import numpy as np
 import pytest
@@ -23,10 +25,14 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.nonideal import NonidealConfig
 from repro_torch.kernels import arena_mvm
 from repro_torch.kernels import banded_solve
+from repro_torch.kernels import crossbar_mvm
+from repro_torch.kernels import schur_gemm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.serve import SolverService
-from _torch_parity import quantized_close, scaled_close, tile_program
+from repro_torch.hybrid import AnalogPreconditioner, solve_refined
+from _torch_parity import (one_step_close, quantized_close, scaled_close,
+                           tile_program)
 
 
 @pytest.fixture
@@ -178,3 +184,104 @@ def test_nodal_solver_path_launches_the_banded_kernel(cuda):
     scaled_close(solver.solve_many(bs).cpu(),
                  blockamc.execute_arena(plain, bs, use_kernel=False).cpu(),
                  1e-4)
+
+
+G0 = 100e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,b,r,c,bits,dtype", [
+    (None, 1, 256, 256, 8, torch.float32),      # the example's check
+    (None, 32, 100, 72, None, torch.float32),   # ragged
+    (None, 1, 257, 130, 8, torch.float32),      # heavily ragged
+    (1, 128, 128, 128, 8, torch.float32),       # L=1 stack
+    (3, 5, 70, 130, 8, torch.float32),          # ragged stack
+    (4, 64, 64, 64, None, torch.bfloat16),      # bf16
+    (2, 64, 96, 40, 8, torch.bfloat16)])
+def test_crossbar_kernel_matches_plain_version(cuda, l, b, r, c, bits,
+                                               dtype):
+    gen = torch.Generator(device=cuda).manual_seed(r + c)
+    lead = () if l is None else (l,)
+    v = (torch.rand(lead + (b, c), generator=gen, device=cuda) * 2 - 1
+         ).to(dtype)
+    gp, gn = ((torch.rand(lead + (r, c), generator=gen, device=cuda) * G0
+               ).to(dtype) for _ in range(2))
+    kw = dict(g0=G0, dac_bits=bits, adc_bits=bits)
+    if l is None:
+        counter, entry, plain = (crossbar_mvm.crossbar_mvm, ops.crossbar_mvm,
+                                 ref.crossbar_mvm_ref)
+    else:
+        counter, entry, plain = (crossbar_mvm.crossbar_mvm_batched,
+                                 ops.crossbar_mvm_batched,
+                                 ref.crossbar_mvm_batched_ref)
+    before = counter.launches
+    out = entry(v, gp, gn, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == lead + (b, r)
+    want = plain(v, gp, gn, **kw).cpu()
+    if bits is None:
+        scaled_close(out.cpu(), want, 1e-5)
+    else:
+        one_step_close(out.cpu(), want, 2.0 / (2 ** bits - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,j,k,dtype", [
+    (128, 128, 128, torch.float32), (256, 128, 384, torch.float32),
+    (100, 60, 130, torch.float32), (1, 1, 1, torch.float32),
+    (128, 96, 64, torch.bfloat16)])
+def test_schur_kernel_matches_plain_version(cuda, i, j, k, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(i + j + k)
+    a4, a3, w = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                 for shape in ((i, j), (i, k), (k, j)))
+    before = schur_gemm.schur_update.launches
+    out = ops.schur_update(a4, a3, w)
+    torch.cuda.synchronize()
+    assert schur_gemm.schur_update.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (i, j)
+    scaled_close(out.cpu(), ref.schur_update_ref(a4, a3, w).cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_crossbar_and_schur_launchers_refuse_bad_input(cuda):
+    v = torch.zeros((2, 4, 8), device=cuda)
+    g = torch.zeros((2, 3, 8), device=cuda)
+    with pytest.raises(ValueError):
+        crossbar_mvm.crossbar_mvm_batched(v.double(), g.double(), g.double(),
+                                          g0=G0)
+    with pytest.raises(ValueError):
+        crossbar_mvm.crossbar_mvm_batched(v, g[:, :, :4], g, g0=G0)
+    with pytest.raises(ValueError):
+        schur_gemm.schur_update(g[0], g[0], g[0])        # (3,8) @ (3,8)
+    with pytest.raises(ValueError, match="CUDA"):
+        schur_gemm.schur_update(g[0].cpu(), g[0].cpu().T.contiguous(),
+                                g[0].cpu())
+    for dtype in (torch.float64, torch.float16):     # the entries too
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ops.crossbar_mvm_batched(v.to(dtype), g, g, g0=G0)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ops.schur_update(g[0], g[0].T.to(dtype), g[0])
+
+
+@pytest.mark.cuda
+def test_fused_preconditioner_is_one_arena_launch_per_application(cuda):
+    """Inside the Krylov loop every application of a fused preconditioner
+    over a uniform plan is one arena-kernel launch: the refined solve's
+    launches equal its preconditioner applications (the seed, one per
+    PCG iteration, none for the exit residual)."""
+    cfg = AnalogConfig(array_size=16, opa_gain=1e5)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(256, 64, generator=gen, dtype=torch.float64)
+    a = (x.T @ x / 256).to(cuda)
+    prec = AnalogPreconditioner.program(a.float(), gen, cfg, 2, device=cuda)
+    assert prec.aplan.program is not None
+    b = (torch.rand(64, 3, generator=gen, dtype=torch.float64) * 2 - 1
+         ).to(cuda)
+    before = arena_mvm.arena_packed_apply.launches
+    xs, res = solve_refined(a, b, prec, tol=1e-10, maxiter=200)
+    launches = arena_mvm.arena_packed_apply.launches - before
+    assert bool(res.converged.all())
+    # the seed, the initial z = M r0, then one per iteration of the loop
+    assert launches == 2 + int(res.iters.max())
+    scaled_close(xs.cpu(), torch.linalg.solve(a, b).cpu(), 1e-8)

@@ -1,6 +1,8 @@
-"""The arena kernel's plain version and wrappers against the JAX package,
-on a CPU host, where the kernel wrappers run the plain version (the CUDA
-kernel itself is held against it on the card in test_torch_cuda.py).
+"""The kernels' plain versions and wrappers against the JAX package, on a
+CPU host, where the kernel wrappers run the plain version (the CUDA
+kernels themselves are held against it on the card in test_torch_cuda.py):
+the arena tile program, the crossbar MVM (single and stacked) and the
+Schur update.
 
 Tolerances: the port's plain version against the JAX oracle and the JAX
 Pallas kernel (interpret mode) at 1e-5 of max|out| - the same tile
@@ -8,9 +10,15 @@ program, with f32 matmuls that may sum in another order.  (The JAX
 package's own kernel-vs-jnp test at atol 1e-7 fails on exactly that
 rounding: 9.5e-7 absolute at 1.8e-7 relative.)  With 6-bit converters
 a reassociated sum could land an ADC output one step away; these inputs
-stay clear of that and must agree to the same bound.
+stay clear of that and must agree to the same bound.  The crossbar's plain
+version against the JAX oracle and the Pallas kernel: 1e-5 of max|out|
+with ideal converters; with 8-bit converters an output within rounding of
+a bin edge may land one ADC step away (`one_step_close`).  The Schur
+update: 1e-5 of max|out|.
 """
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -19,9 +27,11 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import column_slice
 from repro_torch.kernels import arena_mvm as tarena
+from repro_torch.kernels import crossbar_mvm as txbar
+from repro_torch.kernels import schur_gemm as tschur
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from _torch_parity import scaled_close, t, tile_program
+from _torch_parity import one_step_close, scaled_close, t, tile_program
 
 
 @pytest.mark.parametrize("bits", [None, 6])
@@ -85,3 +95,162 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path("arena_mvm")
     assert path.parent == _build.BUILD and path.name.startswith(
         "libarena_mvm-")
+
+
+# ------------------------------ crossbar_mvm ------------------------------
+
+G0 = 100e-6
+
+
+def _xbar_inputs(lead, b, r, c, seed=0):
+    """v uniform in [-1, 1] (lead..., B, C); gpos, gneg uniform in [0, G0]
+    (lead..., R, C); float32 numpy."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(-1, 1, size=lead + (b, c)).astype(np.float32)
+    gp = (rng.uniform(0, 1, size=lead + (r, c)) * G0).astype(np.float32)
+    gn = (rng.uniform(0, 1, size=lead + (r, c)) * G0).astype(np.float32)
+    return v, gp, gn
+
+
+def _xbar_close(out, want, bits):
+    if bits is None:
+        scaled_close(out, want, 1e-5)
+    else:
+        one_step_close(out, want, 2.0 / (2 ** bits - 1))
+
+
+@pytest.mark.parametrize("b,r,c", [(128, 128, 128), (128, 256, 384),
+                                   (256, 128, 256), (32, 100, 72),
+                                   (1, 257, 130)])
+@pytest.mark.parametrize("bits", [None, 8])
+def test_crossbar_ref_matches_jax_oracle_and_pallas(b, r, c, bits):
+    v, gp, gn = _xbar_inputs((), b, r, c, seed=b + r + c)
+    kw = dict(g0=G0, dac_bits=bits, adc_bits=bits)
+    out = tref.crossbar_mvm_ref(t(v), t(gp), t(gn), **kw)
+    assert out.shape == (b, r) and out.dtype == torch.float32
+    jin = [jnp.asarray(x) for x in (v, gp, gn)]
+    _xbar_close(out, jref.crossbar_mvm_ref(*jin, **kw), bits)
+    _xbar_close(out, jops.crossbar_mvm(*jin, interpret=True, **kw), bits)
+
+
+@pytest.mark.parametrize("dac,adc", [(8, None), (None, 8), (6, 10)])
+def test_crossbar_ref_converter_placement_matches_jax(dac, adc):
+    """DAC before the sum, ADC after the complete sum."""
+    v, gp, gn = _xbar_inputs((), 128, 128, 256, seed=3)
+    kw = dict(g0=G0, dac_bits=dac, adc_bits=adc)
+    out = tref.crossbar_mvm_ref(t(v), t(gp), t(gn), **kw)
+    _xbar_close(out, jref.crossbar_mvm_ref(*map(jnp.asarray, (v, gp, gn)),
+                                           **kw), adc)
+
+
+def test_crossbar_ref_bf16_matches_jax():
+    """bf16 inputs: v widened before the DAC, gpos - gneg rounded to bf16
+    before the widening, in both packages."""
+    v, gp, gn = _xbar_inputs((), 128, 128, 128, seed=5)
+    tin = [t(x, torch.bfloat16) for x in (v, gp, gn)]
+    jin = [jnp.asarray(x, jnp.bfloat16) for x in (v, gp, gn)]
+    out = tref.crossbar_mvm_ref(*tin, g0=G0)
+    assert out.dtype == torch.float32
+    scaled_close(out, jref.crossbar_mvm_ref(*jin, g0=G0), 1e-5)
+    scaled_close(tref.crossbar_mvm_batched_ref(*(x[None] for x in tin),
+                                               g0=G0)[0], out, 1e-6)
+
+
+@pytest.mark.parametrize("l,b,r,c", [(1, 128, 128, 128), (4, 32, 64, 64),
+                                     (3, 5, 70, 130)])
+def test_crossbar_batched_ref_matches_vmapped_jax(l, b, r, c):
+    v, gp, gn = _xbar_inputs((l,), b, r, c, seed=4)
+    kw = dict(g0=G0, dac_bits=8, adc_bits=8)
+    out = tref.crossbar_mvm_batched_ref(t(v), t(gp), t(gn), **kw)
+    assert out.shape == (l, b, r)
+    jin = [jnp.asarray(x) for x in (v, gp, gn)]
+    want = jax.vmap(lambda vv, p, n: jref.crossbar_mvm_ref(vv, p, n, **kw))(
+        *jin)
+    _xbar_close(out, want, 8)
+    _xbar_close(out, jops.crossbar_mvm_batched(*jin, interpret=True, **kw),
+                8)
+    for i in range(l):                    # the stack is L single arrays
+        _xbar_close(out[i], tref.crossbar_mvm_ref(t(v[i]), t(gp[i]),
+                                                  t(gn[i]), **kw), 8)
+
+
+def test_crossbar_batched_on_a_flat_plan_inv_stack():
+    """One INV bucket stack of a JAX-programmed flat plan (64x64 system,
+    two stages of 16x16 arrays, sigma=0.05) through the port's batched
+    entry point and the JAX Pallas kernel."""
+    from repro.core import blockamc
+    from repro.core.analog import AnalogConfig
+    from repro.core.nonideal import NonidealConfig
+    from repro.data.matrices import wishart
+    cfg = AnalogConfig(array_size=16, nonideal=NonidealConfig(sigma=0.05))
+    a = wishart(jax.random.PRNGKey(1), 64)
+    fplan = blockamc.build_flat_plan(a, jax.random.PRNGKey(2), cfg, stages=2)
+    grid = fplan.inv_stacks[0]
+    num, s, _ = grid.shape
+    v = np.random.default_rng(3).uniform(-1, 1, (num, 2, s)).astype(
+        np.float32)
+    out = tops.crossbar_mvm_batched(t(v), t(grid.gpos), t(grid.gneg),
+                                    g0=cfg.g0)
+    scaled_close(out, jops.crossbar_mvm_batched(
+        jnp.asarray(v), grid.gpos, grid.gneg, g0=cfg.g0, interpret=True),
+        1e-5)
+
+
+def test_crossbar_cpu_wrappers_run_the_plain_version():
+    v, gp, gn = (t(x) for x in _xbar_inputs((2,), 3, 5, 7))
+    kw = dict(g0=G0, dac_bits=8, adc_bits=6)
+    before = (txbar.crossbar_mvm.launches,
+              txbar.crossbar_mvm_batched.launches)
+    assert torch.equal(tops.crossbar_mvm(v[0], gp[0], gn[0], **kw),
+                       tref.crossbar_mvm_ref(v[0], gp[0], gn[0], **kw))
+    assert torch.equal(tops.crossbar_mvm_batched(v, gp, gn, **kw),
+                       tref.crossbar_mvm_batched_ref(v, gp, gn, **kw))
+    assert (txbar.crossbar_mvm.launches,
+            txbar.crossbar_mvm_batched.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        txbar.crossbar_mvm_batched(v, gp, gn, g0=G0)
+
+
+# ------------------------------- schur_gemm -------------------------------
+
+@pytest.mark.parametrize("i,j,k", [(128, 128, 128), (256, 128, 384),
+                                   (100, 60, 130)])
+def test_schur_ref_matches_jax_oracle_and_pallas(i, j, k):
+    rng = np.random.default_rng(i + j + k)
+    a4, a3, w = (rng.normal(size=shape).astype(np.float32)
+                 for shape in ((i, j), (i, k), (k, j)))
+    out = tref.schur_update_ref(t(a4), t(a3), t(w))
+    assert out.shape == (i, j) and out.dtype == torch.float32
+    jin = [jnp.asarray(x) for x in (a4, a3, w)]
+    scaled_close(out, jref.schur_update_ref(*jin), 1e-5)
+    scaled_close(out, jops.schur_update(*jin, interpret=True), 1e-5)
+    before = tschur.schur_update.launches
+    assert torch.equal(tops.schur_update(t(a4), t(a3), t(w)), out)
+    assert tschur.schur_update.launches == before
+
+
+def test_schur_ref_bf16_widens_before_the_product():
+    rng = np.random.default_rng(9)
+    a4, a3, w = (rng.normal(size=(64, 64)).astype(np.float32)
+                 for _ in range(3))
+    out = tref.schur_update_ref(*(t(x, torch.bfloat16) for x in (a4, a3, w)))
+    assert out.dtype == torch.float32
+    scaled_close(out, jref.schur_update_ref(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (a4, a3, w))), 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tschur.schur_update(t(a4), t(a3), t(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_crossbar_and_schur_entries_refuse_other_types(dtype):
+    """The entries take float32 or bfloat16 on the host as on the card:
+    another type raises instead of being rounded to float32 silently."""
+    v = torch.zeros((2, 4, 8))
+    g = torch.zeros((2, 3, 8))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tops.crossbar_mvm(v[0].to(dtype), g[0], g[0], g0=G0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tops.crossbar_mvm_batched(v, g.to(dtype), g, g0=G0)
+    a = torch.zeros((4, 4))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tops.schur_update(a, a.to(dtype), a)

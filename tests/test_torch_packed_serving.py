@@ -165,11 +165,10 @@ def test_solver_service_front_door_and_two_phase_commit(monkeypatch):
     svc.submit("y", buf)
     with pytest.raises(RuntimeError, match="pending"):
         svc.program("x", a)
-    for name in ("solve_refined", "solve_fallback"):
-        with pytest.raises(NotImplementedError):
-            getattr(svc, name)("x", buf)
-    with pytest.raises(NotImplementedError):
-        svc.flush("x", refined=True)
+    for name in ("solve_refined", "solve_fallback"):   # queues untouched
+        x_h = getattr(svc, name)("y", buf)
+        assert x_h.shape == (N,) and bool(torch.isfinite(x_h).all())
+    assert svc.stats("y").refined_calls == 2
 
     def boom(*args, **kw):
         raise RuntimeError("device lost")
