@@ -8,7 +8,8 @@ holds each against its plain PyTorch version on the card, and drives the
 port's paths at full width, checking that they went through the kernels:
 the paper's program-once / solve-many serving flow, the Fig. 9
 interconnect study under the exact nodal wire model, the kernel bench's
-rows and the example's path (`examples/solve_linear_system.py`).  Phases
+rows, the example's path (`examples/solve_linear_system.py`) and the
+language-model serving path (glm4-9b prefill and decode).  Phases
 (every check raises; nothing is caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
@@ -52,6 +53,18 @@ rows and the example's path (`examples/solve_linear_system.py`).  Phases
      crossbar check on a mapped tile grid (one launch), the Fig. 8
      service's `solve_refined` and `flush(refined=True)`, and the
      area/energy verdict;
+ 11. the attention kernel against its plain version at (BH, S, D) =
+     (128, 1024, 128) bf16 (phase 12's prefill), (32, 8192, 128) bf16,
+     (8, 1000, 64) f32 (ragged) and (16, 1024, 128) f32 non-causal, timed
+     beside the plain version and `scaled_dot_product_attention`;
+ 12. the language-model serving path at glm4-9b's full width and depth
+     (bf16, random weights from a seeded CUDA generator):
+     `Engine.generate` of 32 greedy tokens after a (4, 1024) prompt (40
+     flash launches, one a layer of the prefill; deterministic), a
+     `ContinuousBatchingEngine` serving 6 requests over 4 slots, the two
+     attention routes compared in bf16 (information) and, in a 2-layer
+     float32 glm4-9b, the prefill logits through the kernel against the
+     chunked path (2e-4 of max|logit|);
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -86,6 +99,13 @@ DIST_IDEAL_TOL = 1e-5   # ideal tile solver vs float64, paper metric: f32
 REFINED_TOL = 1e-4      # refined answers vs float64, paper metric: a 1e-6
 #                         relative residual times cond ~9, with f32 residuals
 FIG9_SIMS = 40          # the paper's "40 random simulations" (Section IV)
+BF16_ROUNDING = 2.0 ** -8  # bf16 attention kernel vs its plain version in
+#                            f32 on the same inputs, element by element:
+#                            one round-to-nearest of the output to bf16
+#                            (at most 2^-8 of |out|) on top of the f32 rule
+#                            KERNEL_REL_TOL of max|out|
+LM_ROUTE_TOL = 2e-4     # prefill logits, flash kernel vs chunked route, f32:
+#                         the reference's in-model tolerance
 
 
 def _fail(msg: str):
@@ -105,6 +125,24 @@ def _check_close(what, out, ref, rel):
     if not relerr <= rel:
         _fail(f"{what}: {relerr:.3e} > {rel:g} of max|ref|")
     return err
+
+
+def _check_bf16_rounding(what, out, ref):
+    """A bf16 output against a float32 reference, element by element:
+    |out - ref| <= BF16_ROUNDING * |ref| + KERNEL_REL_TOL * max|ref|, so
+    that rows of small outputs are held to their own size, not to the
+    largest row's.  Returns (max abs err, largest ratio err / limit)."""
+    err = (out.double() - ref.double()).abs()
+    limit = (BF16_ROUNDING * ref.double().abs()
+             + KERNEL_REL_TOL * float(ref.double().abs().max()))
+    ratio = float((err / limit).max())
+    _, relerr = _max_err(out, ref)
+    print(f"  {what}: max abs err {float(err.max()):.3e} ({relerr:.3e} of "
+          f"max|ref|); largest err / (2^-8 |ref| + {KERNEL_REL_TOL:g} "
+          f"max|ref|) = {ratio:.4f} (limit 1)")
+    if not ratio <= 1.0:
+        _fail(f"{what}: an element is {ratio:.4f} of its bf16 limit")
+    return float(err.max()), ratio
 
 
 def _check_quantized(what, out, ref, step):
@@ -841,6 +879,254 @@ def _example_phase(dev, svc, mid, a_svc):
     return counts
 
 
+def _flash_bound(bh, s, d, dtype, causal):
+    """Least time of one attention call: q, k, v read once and out written
+    once over HBM; 4*BH*D flops per live (row, key) pair - S(S+1)/2 of
+    them causal, S^2 full - over the peak of the inputs' type (bf16 on
+    the tensor cores, which compute the same function)."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return _roofline(4 * bh * s * d * elt, 4 * bh * d * pairs,
+                     BF16_FLOP_PER_S if dtype == torch.bfloat16
+                     else F32_FLOP_PER_S)
+
+
+def _flash_phase(dev):
+    """Phase 11: the attention kernel against its plain version on the
+    card, at the phase-12 prefill's own shape (BH, S, D) = (128, 1024,
+    128) bf16, a long (32, 8192, 128) bf16, a ragged (8, 1000, 64) f32 and
+    a full (non-causal) (16, 1024, 128) f32.  float32: KERNEL_REL_TOL of
+    max|out|; bfloat16: against the plain version evaluated in float32 on
+    the same bf16 inputs, element by element (`_check_bf16_rounding`: the
+    kernel rounds its float32 result to bf16 once).  Each row is timed
+    beside the plain version and `scaled_dot_product_attention` on the
+    same tensors (timed only; the port never calls it).  Returns {label: stats}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    print("phase 11: attention kernel vs plain version on the card")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = [("serving prefill", 128, 1024, 128, torch.bfloat16, True),
+             ("long prefill", 32, 8192, 128, torch.bfloat16, True),
+             ("ragged S", 8, 1000, 64, torch.float32, True),
+             ("full attention", 16, 1024, 128, torch.float32, False)]
+    stats = {}
+    for label, bh, s, d, dtype, causal in cases:
+        what = (f"{label}: (BH, S, D) = ({bh}, {s}, {d}) {str(dtype)[6:]}"
+                f"{'' if causal else ' non-causal'}")
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3))
+        out = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v)]
+        want = ref.flash_attention_ref(*f32, causal=causal)
+        if dtype == torch.float32:
+            err, ratio = _check_close(what, out, want, KERNEL_REL_TOL), None
+        else:
+            err, ratio = _check_bf16_rounding(what, out, want)
+        if out.dtype != dtype or out.shape != q.shape:
+            _fail(f"{what}: output {out.dtype} {tuple(out.shape)}")
+        del want, f32
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                      reps=5, per_batch=3)
+        plain_ms = _time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), reps=3, per_batch=1)
+        # (1, BH, S, D): the 4-D layout its fused kernels take
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), reps=5,
+            per_batch=3)
+        bound_ms, bound_by = _flash_bound(bh, s, d, dtype, causal)
+        print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
+              f"bound")
+        stats[label] = dict(err=err, bf16_ratio=ratio, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _device_busy_ms(fn):
+    """(host wall ms, device busy ms) of one fn() under torch.profiler:
+    busy is the union of the card's kernel, copy and fill intervals in
+    the trace, None if the trace holds no device event.  The profiler's
+    own host cost inflates the wall time, so the idle share it gives is
+    an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return wall, (busy / 1e3 if spans else None)
+
+
+def _lm_phase(dev):
+    """Phase 12: the language-model serving path at glm4-9b's full width
+    and depth (40 layers, d_model 4096, 32 heads, 2 KV heads, head_dim
+    128, d_ff 13696, vocab 151552, bfloat16), weights from `init_params`
+    on a CUDA generator.  `Engine(max_len=1056).generate` on a seeded (4,
+    1024) prompt for 32 greedy tokens (one flash launch per layer of its
+    prefill), repeated for determinism; a `ContinuousBatchingEngine` over
+    4 slots serving 6 requests of mixed prompt lengths; then the full
+    model's two attention routes compared in bf16 (information, not a
+    gate), and a 2-layer float32 glm4-9b whose `prefill` logits through
+    the kernel must match the chunked plain path within LM_ROUTE_TOL of
+    max|logit|.  Returns (launches on the generate path, stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.lm_engine import Engine
+    from repro_torch.models.lm_scheduler import (ContinuousBatchingEngine,
+                                                 Request)
+    from repro_torch.models.serve_step import (make_decode_step,
+                                               make_prefill_step)
+    cfg = get_config("glm4-9b")
+    print(f"phase 12: LM serving, {cfg.name} full size ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} "
+          f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"  init_params: {n_params / 1e9:.3f} G parameters, "
+          f"{n_bytes / 1e9:.2f} GB, {time.perf_counter() - t0:.2f} s")
+    b, s, n_new, max_len = 4, 1024, 32, 1056
+    prompts = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    engine = Engine(cfg, params, max_len=max_len)
+    engine.generate(prompts, 4)                           # warm-up
+    torch.cuda.synchronize()
+
+    flash_attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    launches = flash_attention.flash_attention.launches
+    print(f"  Engine.generate (4, 1024) + {n_new} greedy tokens: "
+          f"{gen_wall:.3f} s wall, {launches} flash launches")
+    if launches != cfg.n_layers:
+        _fail(f"generate launched the flash kernel {launches} times, "
+              f"expected {cfg.n_layers} (one a layer of the prefill)")
+    if tuple(ids.shape) != (b, n_new) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab)).all()):
+        _fail(f"generated ids of shape {tuple(ids.shape)} outside "
+              f"[0, {cfg.vocab})")
+    again = engine.generate(prompts, n_new)
+    if not torch.equal(ids, again):
+        _fail("a second generate from the same inputs gave other ids")
+    prefill_step = make_prefill_step(cfg, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, cache = prefill_step(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if not torch.equal(nxt, ids[:, 0]):
+        _fail("prefill's next token differs from generate's first id")
+    decode_ms = (gen_wall - prefill_s) / n_new * 1e3
+    print(f"  host clock: prefill {prefill_s * 1e3:.1f} ms "
+          f"({b * s / prefill_s:.0f} tokens/s), decode {decode_ms:.2f} ms a "
+          f"step of {b} tokens ({b / decode_ms * 1e3:.0f} tokens/s; "
+          f"weights {n_bytes / 1e9:.2f} GB read a step: "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
+    decode_step = make_decode_step(cfg)
+
+    def four_steps():
+        tok, c = nxt, cache
+        for i in range(4):
+            tok, c = decode_step(params, c, tok, s + i, None)
+
+    profiled = {}
+    for what, fn in (("prefill", lambda: prefill_step(
+            params, {"tokens": prompts})), ("4 decode steps", four_steps)):
+        wall, busy = _device_busy_ms(fn)
+        profiled[what] = dict(wall_ms=wall, busy_ms=busy)
+        print(f"  torch.profiler, {what}: {wall:.1f} ms wall, device busy "
+              + ("not measured (no device events in the trace)"
+                 if busy is None else
+                 f"{busy:.1f} ms ({1 - busy / wall:.1%} idle)"))
+    del cache
+
+    # continuous batching: 6 requests of mixed prompt lengths, 4 slots
+    rng = np.random.default_rng(12)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, size=n).tolist(), m)
+            for i, (n, m) in enumerate([(5, 8), (17, 4), (9, 12), (30, 6),
+                                        (3, 10), (12, 5)])]
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = cb.run(reqs)
+    torch.cuda.synchronize()
+    cb_wall = time.perf_counter() - t0
+    print(f"  ContinuousBatchingEngine: {len(reqs)} requests over 4 slots "
+          f"(max_len 64) in {cb_wall:.3f} s, "
+          f"{sum(len(v) for v in served.values())} tokens generated")
+    for r in reqs:
+        got = served.get(r.req_id, [])
+        if len(got) != r.max_new or not all(0 <= t < cfg.vocab for t in got):
+            _fail(f"request {r.req_id}: {len(got)} ids of {r.max_new}, or "
+                  f"ids outside the vocabulary")
+
+    # the two routes at full depth in bf16: information only
+    before = flash_attention.flash_attention.launches
+    kernel_logits, _ = tr.forward(params, cfg, tokens=prompts)
+    plain_logits, _ = tr.forward(params, cfg, tokens=prompts,
+                                 use_flash=False)
+    if flash_attention.flash_attention.launches != before + cfg.n_layers:
+        _fail("forward did not launch the flash kernel once a layer")
+    agree = float((kernel_logits.argmax(-1) == plain_logits.argmax(-1)
+                   ).double().mean())
+    last = int((kernel_logits[:, -1].argmax(-1)
+                == plain_logits[:, -1].argmax(-1)).sum())
+    print(f"  bf16, full depth, kernel vs chunked route: argmax agrees at "
+          f"{agree:.2%} of {b * s} positions, next token at {last} of {b} "
+          f"(information: the routes round differently in bf16)")
+    del kernel_logits, plain_logits, params, engine, cb
+    torch.cuda.empty_cache()
+
+    # 2 layers at full width in float32 (TF32 off): the routes agree
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    params2 = tr.init_params(torch.Generator(device=dev).manual_seed(2),
+                             cfg2)
+    kernel2, _ = tr.prefill(params2, cfg2, tokens=prompts)
+    plain2, _ = tr.prefill(params2, cfg2, tokens=prompts, use_flash=False)
+    err = _check_close("2-layer float32 glm4-9b prefill logits, kernel vs "
+                       "chunked route", kernel2, plain2, LM_ROUTE_TOL)
+    del params2
+    torch.cuda.empty_cache()
+    return launches, dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_ms,
+                          generate_s=gen_wall, cb_s=cb_wall,
+                          profiled=profiled,
+                          route_err=err, bf16_agree=agree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _leaves(val)
+    else:
+        yield tree
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -1038,6 +1324,14 @@ def main() -> int:
     example_launches = _example_phase(dev, svc, ids[0], mats[0])
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 11-12. slice 4: the attention kernel, the LM serving path ---------
+    t0 = time.perf_counter()
+    flash_stats = _flash_phase(dev)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_launches, lm_stats = _lm_phase(dev)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -1108,6 +1402,24 @@ def main() -> int:
             "launches_by_path": by_path,
             "shapes": bench_stats[name],
         })
+    st = flash_stats["serving prefill"]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "launches": lm_launches,
+        "max_abs_err": st["err"],
+        "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"],
+        "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"],
+        "launches_by_path": {"glm4-9b Engine.generate (phase 12)":
+                                 lm_launches},
+        "shapes": flash_stats,
+        "lm": lm_stats,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

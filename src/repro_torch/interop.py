@@ -27,6 +27,12 @@ tile-solver plan (`core/distributed.py`'s `DistPlan`) comes across as
       "leaves": (gpos, gneg), each (2^stages, rt, ct, s, s),
     }
 
+Language-model parameters and caches (`models/transformer.py`) come
+across as the reference's nested-dict pytree with numpy leaves
+(`lm_params_from_numpy`, `lm_cache_from_numpy`); the keys are the same on
+both sides.  A bfloat16 leaf (numpy's `ml_dtypes.bfloat16`, which
+`torch.from_numpy` refuses) travels as its 16-bit pattern.
+
 This module sees numpy and torch only.
 """
 from __future__ import annotations
@@ -86,3 +92,31 @@ def dist_plan_from_numpy(d: dict, device="cuda") -> DistPlan:
     return DistPlan([grid(p) for p in d["mvm2"]],
                     [grid(p) for p in d["mvm3"]], grid(d["leaves"]), scale,
                     int(d["stages"]))
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    """One numpy leaf as a tensor on `dev`, bfloat16 bit for bit."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree_from_numpy(tree, dev):
+    if isinstance(tree, dict):
+        return {key: _tree_from_numpy(val, dev) for key, val in tree.items()}
+    return _tensor(tree, dev)
+
+
+def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The port's LM parameter dict on `device` from the reference's
+    parameter pytree with numpy leaves (same keys: `blocks` stacked on a
+    leading repeat axis, remainders as `rem{r}`)."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_cache_from_numpy(tree: dict, device="cuda") -> dict:
+    """The port's decode cache on `device` from the reference's cache
+    pytree with numpy leaves (same keys and layout)."""
+    return _tree_from_numpy(tree, resolve_device(device))

@@ -10,6 +10,8 @@ versions.
                   `repro/kernels/crossbar_mvm.py`)
   schur_gemm    - the fused Schur-complement update A4 - A3 @ W
                   (replaces `repro/kernels/schur_gemm.py`)
+  flash_attention - causal online-softmax attention forward (replaces
+                  `repro/kernels/flash_attention.py`)
 
 Use `repro_torch.kernels.ops` for the public entry points (a CPU tensor
 runs the plain version in `ref.py`, a CUDA tensor launches the kernel) and

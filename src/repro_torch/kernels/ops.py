@@ -2,7 +2,8 @@
 `repro/kernels/ops.py`: the arena program computes in f32 and returns the
 arena's dtype; the block-Thomas sweeps keep their input dtype, float64
 included; the crossbar MVM and the Schur update take float32 or bfloat16
-inputs and return float32.
+inputs and return float32; attention takes float32 or bfloat16 and
+returns the inputs' dtype.
 
 A tensor on the CPU runs the plain version (`ref.py`); a tensor on the
 card launches the hand-written kernel, or raises - there is no fallback
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels import arena_mvm as _arena
 from repro_torch.kernels import banded_solve as _banded
 from repro_torch.kernels import crossbar_mvm as _xbar
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import schur_gemm as _schur
 
@@ -135,3 +137,34 @@ def schur_update(a4, a3, w):
     dev = a4.device
     return _schur.schur_update(
         *(x.to(device=dev, dtype=dtype).contiguous() for x in (a4, a3, w)))
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Blocked causal (or full) attention (see
+    `kernels/flash_attention.py`): q, k, v (BH, S, D) -> (BH, S, D) in q's
+    dtype, float32 or bfloat16 (any other type raises, on the host as on
+    the card).  A non-causal call needs S % 128 == 0, as the JAX wrapper's.
+
+    On the CPU this is the kernel's function evaluated by the plain
+    version on float32 copies, cast back to q's dtype (any D); on the card
+    the kernel, which takes D in (64, 128) and raises on any other.
+    """
+    for x in (q, k, v):
+        if x.dtype not in _flash.DTYPES:
+            raise ValueError(f"attention takes float32 or bfloat16, got "
+                             f"{x.dtype}")
+    if not causal and q.shape[1] % 128:
+        raise ValueError("non-causal flash requires S % 128 == 0")
+    if q.device.type == "cpu":
+        f32 = torch.float32
+        return _ref.flash_attention_ref(q.to(f32), k.to(f32), v.to(f32),
+                                        causal=causal).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+
+    def ready(x):       # one dtype, contiguous, 16-byte aligned
+        x = x.to(device=q.device, dtype=q.dtype).contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    return _flash.flash_attention(ready(q), ready(k), ready(v),
+                                  causal=causal)

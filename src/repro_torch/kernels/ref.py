@@ -100,3 +100,21 @@ def crossbar_mvm_batched_ref(v, gpos, gneg, *, g0, dac_bits=None,
 def schur_update_ref(a4, a3, w):
     """Plain version of the fused Schur update: A4 - A3 @ W in float32."""
     return a4.to(torch.float32) - a3.to(torch.float32) @ w.to(torch.float32)
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """Plain softmax attention.  q, k, v: (BH, S, D) -> (BH, S, D).
+
+    As the reference oracle: scores in the inputs' dtype scaled by
+    D**-0.5, masked to -1e30 above the diagonal when causal, softmax in
+    float32 cast back to q's dtype, then the weighted sum of v.  The
+    kernel's own function (float32 throughout, cast at the end) is this
+    evaluated on float32 copies of the inputs.
+    """
+    s = torch.einsum("bqd,bkd->bqk", q, k) * (q.shape[-1] ** -0.5)
+    if causal:
+        n = q.shape[1]
+        above = torch.ones((n, n), dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, -1e30)
+    w = torch.softmax(s.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", w, v)

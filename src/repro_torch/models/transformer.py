@@ -1,0 +1,361 @@
+"""Decoder-only transformer assembly, as `repro/models/transformer.py`,
+for the block kinds the port has: attention blocks with a dense SwiGLU FFN
+(the dense family).
+
+The layer stack is the reference's: a repeated `layer_pattern` unit whose
+homogeneous repeats are stacked on a leading axis under `params["blocks"]`
+(and `cache["blocks"]`), and the pattern's remainder layers unrolled as
+`rem{r}`, so that `interop.lm_params_from_numpy` maps one onto the other
+key for key.  The reference scans over the stacked axis; the port runs a
+Python loop over it, indexing views.  Recurrent (`rec`), SSM (`ssm`) and
+MoE blocks raise NotImplementedError (ROADMAP item 13), and with them
+the local-attention window of hybrid patterns: `prefill`, `decode_step`
+and `init_cache` run full causal attention, and `forward` takes a window
+only from `window_override`.
+
+`init_params(gen, cfg)` cannot replay `jax.random`; it draws from one
+`torch.Generator`, on the generator's device, in this order: the
+embedding, the LM head (untied configs), then every stacked repeat in
+order and each block of its unit in order, then the remainder layers; a
+block draws its attention weights (wq, wk, wv, wo), then its FFN (gate,
+up, down).  Norm weights are zeros.
+
+`use_flash` on `block_forward`, `forward`, `block_prefill` and `prefill`
+routes full-causal attention (see `models/attention.py`): by default
+through the hand-written flash kernel for CUDA tensors.  Decode updates
+the cache in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (mm, rms_norm, softcap, swiglu_ffn,
+                                       swiglu_ffn_init)
+
+_NOT_PORTED = ("{} blocks are not ported yet (ROADMAP item 13: "
+               "models/{}.py); the port runs the dense family")
+
+
+def _unported(kind: str, is_moe: bool = False):
+    if is_moe:
+        return NotImplementedError(_NOT_PORTED.format("MoE", "moe"))
+    return NotImplementedError(_NOT_PORTED.format(
+        {"rec": "RG-LRU (rec)", "ssm": "SSM"}.get(kind, kind),
+        {"rec": "rglru", "ssm": "ssm"}.get(kind, kind)))
+
+
+def _check_ported(unit):
+    for kind, is_moe in unit:
+        if kind != "attn":
+            raise _unported(kind)
+        if is_moe:
+            raise _unported(kind, is_moe)
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab // 256) * 256
+
+
+def _dtype(name: str):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def _map(fn, tree):
+    """fn over every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {key: _map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def _index(tree, r: int):
+    """Repeat r of a stacked tree: views, no copies."""
+    return _map(lambda x: x[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               is_moe: bool) -> Dict:
+    dtype = _dtype(cfg.param_dtype)
+    _check_ported(((kind, is_moe),))
+    params: Dict[str, Any] = {
+        "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                           device=gen.device),
+        "mix": attn_mod.init_attention(gen, cfg, dtype),
+    }
+    if cfg.d_ff > 0:
+        params["ln2"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                    device=gen.device)
+        params["ffn"] = swiglu_ffn_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return params
+
+
+def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, params["ln2"], cfg.norm_eps)
+    return x + swiglu_ffn(params["ffn"], h)
+
+
+def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, kind: str, is_moe: bool,
+                  window: Optional[int], *, use_flash: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block.  Returns (x, aux_loss)."""
+    _check_ported(((kind, is_moe),))
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attention(params["mix"], h, positions, cfg,
+                               window=window, use_flash=use_flash)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff > 0:
+        x = _ffn(params, x, cfg)
+    return x, aux
+
+
+def init_block_cache(batch: int, cache_len: int, cfg: ModelConfig,
+                     kind: str, dtype=torch.bfloat16, device="cuda") -> Dict:
+    _check_ported(((kind, False),))
+    return attn_mod.init_kv_cache(batch, cache_len, cfg, dtype, device)
+
+
+def block_decode(params: Dict, x_t: torch.Tensor, cache: Dict, pos,
+                 cfg: ModelConfig, kind: str, is_moe: bool,
+                 window: Optional[int]) -> Tuple[torch.Tensor, Dict]:
+    _check_ported(((kind, is_moe),))
+    h = rms_norm(x_t, params["ln1"], cfg.norm_eps)
+    mixed, cache = attn_mod.attention_decode(params["mix"], h, cache, pos,
+                                             cfg, window=window)
+    x_t = x_t + mixed
+    if cfg.d_ff > 0:
+        x_t = _ffn(params, x_t, cfg)
+    return x_t, cache
+
+
+# ---------------------------------------------------------------------------
+# Stack layout: stacked super-layers + unrolled remainder
+# ---------------------------------------------------------------------------
+
+def _pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
+    """The repeating unit as ((kind, is_moe), ...)."""
+    if cfg.layer_pattern:
+        kinds = cfg.layer_pattern
+    elif cfg.family == "ssm":
+        kinds = ("ssm",)
+    else:
+        kinds = ("attn",)
+    period = max(len(kinds), cfg.moe_every if cfg.n_experts else 1)
+    # extend kinds cyclically to the common period
+    unit = []
+    for i in range(period):
+        unit.append((kinds[i % len(kinds)], cfg.is_moe_layer(i)))
+    return tuple(unit)
+
+
+def stack_layout(cfg: ModelConfig
+                 ) -> Tuple[Tuple[Tuple[str, bool], ...], int, int]:
+    """(pattern unit, n_stacked_repeats, n_remainder_layers)."""
+    unit = _pattern(cfg)
+    p = len(unit)
+    return unit, cfg.n_layers // p, cfg.n_layers % p
+
+
+def _stack_into(dst: Optional[Dict], src: Dict, r: int, n: int) -> Dict:
+    """Write repeat r of a tree into the stacked tree `dst` (allocated on
+    the first repeat), so that the whole stack never exists twice."""
+    if dst is None:
+        dst = _map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                         dtype=x.dtype, device=x.device), src)
+
+    def put(d, s):
+        for key, val in s.items():
+            if isinstance(val, dict):
+                put(d[key], val)
+            else:
+                d[key][r].copy_(val)
+    put(dst, src)
+    return dst
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """Random parameters on `gen.device`, in the order of the module
+    docstring."""
+    dtype = _dtype(cfg.param_dtype)
+    unit, n_rep, n_rem = stack_layout(cfg)
+    _check_ported(unit)
+    dev = gen.device
+    v = padded_vocab(cfg)
+    params: Dict[str, Any] = {
+        "embed": (torch.randn((v, cfg.d_model), generator=gen, device=dev,
+                              dtype=torch.float32) * 0.02).to(dtype),
+        "ln_f": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = (torch.randn(
+            (cfg.d_model, v), generator=gen, device=dev, dtype=torch.float32)
+            * (cfg.d_model ** -0.5)).to(dtype)
+    blocks = None
+    for r in range(n_rep):
+        sup = {f"b{i}": init_block(gen, cfg, kind, is_moe)
+               for i, (kind, is_moe) in enumerate(unit)}
+        blocks = _stack_into(blocks, sup, r, n_rep)
+        del sup
+    if blocks is not None:
+        params["blocks"] = blocks
+    for r in range(n_rem):
+        kind, is_moe = unit[r]
+        params[f"rem{r}"] = init_block(gen, cfg, kind, is_moe)
+    return params
+
+
+def _embed(params: Dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    dtype = _dtype(cfg.compute_dtype)
+    if embeds is None:
+        return params["embed"][tokens.long()].to(dtype)
+    return embeds.to(dtype)
+
+
+def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return softcap(mm(x, head), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill / evaluation)
+# ---------------------------------------------------------------------------
+
+def forward(params: Dict, cfg: ModelConfig, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            window_override: Optional[int] = None,
+            remat: str = "none", use_flash: Optional[bool] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, Vpad), aux_loss scalar).  `remat` takes only
+    "none": rematerialisation belongs to training, not ported yet."""
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r}: training is not "
+                                  f"ported yet (ROADMAP item 13)")
+    x = _embed(params, cfg, tokens, embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    unit, n_rep, n_rem = stack_layout(cfg)
+    _check_ported(unit)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = []
+    for r in range(n_rep):
+        lp = _index(params["blocks"], r)
+        layers += [(lp[f"b{i}"],) + u for i, u in enumerate(unit)]
+    layers += [(params[f"rem{r}"],) + unit[r] for r in range(n_rem)]
+    for lp, kind, is_moe in layers:
+        x, a = block_forward(lp, x, positions, cfg, kind, is_moe,
+                             window_override, use_flash=use_flash)
+        aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, kind: str, is_moe: bool,
+                  window: Optional[int], cache_len: int, cache_dtype, *,
+                  use_flash: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    _check_ported(((kind, is_moe),))
+    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    clen = min(cache_len, window) if window is not None else cache_len
+    mixed, cache = attn_mod.attention_prefill(
+        params["mix"], h, positions, cfg, clen, window=window,
+        cache_dtype=cache_dtype, use_flash=use_flash)
+    x = x + mixed
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff > 0:
+        x = _ffn(params, x, cfg)
+    return x, cache, aux
+
+
+def prefill(params: Dict, cfg: ModelConfig, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            cache_len: Optional[int] = None,
+            cache_dtype=torch.bfloat16, use_flash: Optional[bool] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full forward emitting (last-position logits, decode-ready cache)."""
+    x = _embed(params, cfg, tokens, embeds)
+    b, s, _ = x.shape
+    if cache_len is None:
+        cache_len = s
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    unit, n_rep, n_rem = stack_layout(cfg)
+    _check_ported(unit)
+
+    cache: Dict[str, Any] = {}
+    stacked = None
+    for r in range(n_rep):
+        lp = _index(params["blocks"], r)
+        caches = {}
+        for i, (kind, is_moe) in enumerate(unit):
+            x, caches[f"b{i}"], _ = block_prefill(
+                lp[f"b{i}"], x, positions, cfg, kind, is_moe, None,
+                cache_len, cache_dtype, use_flash=use_flash)
+        stacked = _stack_into(stacked, caches, r, n_rep)
+    if stacked is not None:
+        cache["blocks"] = stacked
+    for r in range(n_rem):
+        kind, is_moe = unit[r]
+        x, cache[f"rem{r}"], _ = block_prefill(
+            params[f"rem{r}"], x, positions, cfg, kind, is_moe, None,
+            cache_len, cache_dtype, use_flash=use_flash)
+    logits = _head(params, cfg, x[:, -1:])
+    return logits[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(batch: int, cache_len: int, cfg: ModelConfig,
+               dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Zeroed decode caches, stacked as the parameters are, on `device`
+    (default the card; raises without one)."""
+    unit, n_rep, n_rem = stack_layout(cfg)
+    _check_ported(unit)
+    device = resolve_device(device)
+
+    def one(kind):
+        return init_block_cache(batch, cache_len, cfg, kind, dtype, device)
+
+    cache: Dict[str, Any] = {}
+    if n_rep > 0:
+        cache["blocks"] = {f"b{i}": _map(
+            lambda x: torch.zeros((n_rep,) + tuple(x.shape), dtype=x.dtype,
+                                  device=x.device), one(kind))
+            for i, (kind, _) in enumerate(unit)}
+    for r in range(n_rem):
+        cache[f"rem{r}"] = one(unit[r][0])
+    return cache
+
+
+def decode_step(params: Dict, cache: Dict, tokens_t: torch.Tensor, pos,
+                cfg: ModelConfig, *,
+                embeds_t: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One token for the whole batch.  tokens_t: (B,) ids; pos an int, a
+    0-d tensor or (B,) per-slot positions.  Updates `cache` in place and
+    returns (logits (B, Vpad), cache)."""
+    x = _embed(params, cfg, None if tokens_t is None else tokens_t[:, None],
+               embeds_t)
+    unit, n_rep, n_rem = stack_layout(cfg)
+    _check_ported(unit)
+    for r in range(n_rep):
+        lp, lc = _index(params["blocks"], r), _index(cache["blocks"], r)
+        for i, (kind, is_moe) in enumerate(unit):
+            x, _ = block_decode(lp[f"b{i}"], x, lc[f"b{i}"], pos, cfg, kind,
+                                is_moe, None)
+    for r in range(n_rem):
+        kind, is_moe = unit[r]
+        x, _ = block_decode(params[f"rem{r}"], x, cache[f"rem{r}"], pos, cfg,
+                            kind, is_moe, None)
+    return _head(params, cfg, x)[:, 0, :], cache

@@ -68,6 +68,19 @@ def scaled_close(actual, expected, rel):
     assert err <= bound, f"max abs err {err:.3g} > {bound:.3g}"
 
 
+def bf16_rounding_close(actual, expected, rel=1e-5):
+    """A bf16 result against its float32 evaluation, element by element:
+    |actual - expected| <= 2^-8 * |expected| + rel * max|expected| - one
+    round-to-nearest to bf16 (at most 2^-8 of the value) on top of the
+    f32 reassociation rule, so small outputs are held to their own size."""
+    actual = np.asarray(actual, np.float64)
+    expected = np.asarray(expected, np.float64)
+    limit = (2.0 ** -8 * np.abs(expected)
+             + rel * max(float(np.max(np.abs(expected))), 1e-30))
+    ratio = float(np.max(np.abs(actual - expected) / limit))
+    assert ratio <= 1.0, f"an element is {ratio:.4f} of its bf16 limit"
+
+
 def one_step_close(actual, expected, step, share=0.02):
     """One converter, its input sums reassociated: outputs agree to 1e-5 of
     max|expected|, except that at most `share` of them may land one ADC

@@ -14,7 +14,14 @@ float32 and 1e-12 in float64 on well-conditioned random factor stacks
 (real nodal factor stacks amplify rounding; chip_smoke.py holds the
 kernel to a float64 evaluation there).  The crossbar kernel: 1e-5 of
 max|out| ideal, at most one ADC step on at most 2% of outputs with
-converters (`one_step_close`); the Schur kernel: 1e-5 of max|out|.
+converters (`one_step_close`); the Schur kernel: 1e-5 of max|out|.  The
+attention kernel: 1e-5 of max|out| in float32 (the same online softmax,
+sums reassociated); in bfloat16 against the plain version evaluated in
+float32 on the same bf16 inputs, element by element within 2^-8 of the
+element plus 1e-5 of max|out| (the kernel's one round-to-nearest of its
+float32 result to bf16, `bf16_rounding_close`); the model's
+two attention routes at 2e-4 of max|logit| in float32, the reference's
+in-model tolerance.
 """
 import numpy as np
 import pytest
@@ -26,13 +33,14 @@ from repro_torch.core.nonideal import NonidealConfig
 from repro_torch.kernels import arena_mvm
 from repro_torch.kernels import banded_solve
 from repro_torch.kernels import crossbar_mvm
+from repro_torch.kernels import flash_attention
 from repro_torch.kernels import schur_gemm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.serve import SolverService
 from repro_torch.hybrid import AnalogPreconditioner, solve_refined
-from _torch_parity import (one_step_close, quantized_close, scaled_close,
-                           tile_program)
+from _torch_parity import (bf16_rounding_close, one_step_close,
+                           quantized_close, scaled_close, tile_program)
 
 
 @pytest.fixture
@@ -285,3 +293,78 @@ def test_fused_preconditioner_is_one_arena_launch_per_application(cuda):
     # the seed, the initial z = M r0, then one per iteration of the loop
     assert launches == 2 + int(res.iters.max())
     scaled_close(xs.cpu(), torch.linalg.solve(a, b).cpu(), 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,causal", [
+    (4, 128, 128, torch.float32, True),
+    (3, 200, 128, torch.float32, True),       # ragged S
+    (2, 1000, 64, torch.float32, True),
+    (2, 256, 64, torch.float32, False),
+    (5, 77, 64, torch.float32, True),         # one partial tile
+    (8, 512, 128, torch.bfloat16, True),
+    (2, 300, 64, torch.bfloat16, True),
+])
+def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, causal):
+    gen = torch.Generator(device=cuda).manual_seed(bh * s + d)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda
+                           ).to(dtype) for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    if dtype == torch.float32:
+        scaled_close(out.cpu(), plain.cpu(), 1e-5)
+    else:
+        bf16_rounding_close(out.float().cpu(), plain.cpu())
+
+
+@pytest.mark.cuda
+def test_flash_launcher_refuses_bad_input(cuda):
+    q = torch.zeros((2, 128, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q[..., :32].contiguous(),
+                                        q[..., :32].contiguous(),
+                                        q[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q[:, :64].contiguous(), q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), q, q)
+    # misaligned views are copied by the public entry, refused below it
+    buf = torch.randn(2 * 128 * 64 + 1, device=cuda)
+    odd = buf[1:].view(2, 128, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_attention(odd, odd, odd)
+    scaled_close(ops.flash_attention(odd, odd, odd).cpu(),
+                 ref.flash_attention_ref(odd, odd, odd).cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
+    """The model's default route on the card is the kernel: one launch per
+    attention layer of a prefill, none for `use_flash=False`, and the two
+    routes' logits agree in float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=3,
+                              d_model=256, n_heads=4, kv_heads=2,
+                              head_dim=64, d_ff=512, vocab=1000,
+                              param_dtype="float32", compute_dtype="float32")
+    params = tr.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 150), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = flash_attention.flash_attention.launches
+    logits, cache = tr.prefill(params, cfg, tokens=toks, cache_len=160)
+    assert flash_attention.flash_attention.launches == before + cfg.n_layers
+    plain, _ = tr.prefill(params, cfg, tokens=toks, cache_len=160,
+                          use_flash=False)
+    assert flash_attention.flash_attention.launches == before + cfg.n_layers
+    scaled_close(logits.cpu(), plain.cpu(), 2e-4)
+    full, _ = tr.forward(params, cfg, tokens=toks)
+    assert flash_attention.flash_attention.launches == \
+        before + 2 * cfg.n_layers
+    scaled_close(full[:, -1].cpu(), logits.cpu(), 2e-4)

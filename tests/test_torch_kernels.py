@@ -1,8 +1,8 @@
 """The kernels' plain versions and wrappers against the JAX package, on a
 CPU host, where the kernel wrappers run the plain version (the CUDA
 kernels themselves are held against it on the card in test_torch_cuda.py):
-the arena tile program, the crossbar MVM (single and stacked) and the
-Schur update.
+the arena tile program, the crossbar MVM (single and stacked), the
+Schur update and flash attention.
 
 Tolerances: the port's plain version against the JAX oracle and the JAX
 Pallas kernel (interpret mode) at 1e-5 of max|out| - the same tile
@@ -14,7 +14,11 @@ stay clear of that and must agree to the same bound.  The crossbar's plain
 version against the JAX oracle and the Pallas kernel: 1e-5 of max|out|
 with ideal converters; with 8-bit converters an output within rounding of
 a bin edge may land one ADC step away (`one_step_close`).  The Schur
-update: 1e-5 of max|out|.
+update: 1e-5 of max|out|.  Flash attention: the reference tests' own
+tolerances (`test_kernels.py::test_flash_attention_*`): 2e-5 (rtol and
+atol) in float32 and 3e-2 in bfloat16 - the port's plain version, the CPU
+wrapper, the JAX oracle and the JAX Pallas kernel (interpret mode) are all
+one softmax attention summed in another order or blocked differently.
 """
 import jax
 import jax.numpy as jnp
@@ -28,10 +32,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import column_slice
 from repro_torch.kernels import arena_mvm as tarena
 from repro_torch.kernels import crossbar_mvm as txbar
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import schur_gemm as tschur
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from _torch_parity import one_step_close, scaled_close, t, tile_program
+from _torch_parity import (bf16_rounding_close, one_step_close, scaled_close,
+                           t, tile_program)
 
 
 @pytest.mark.parametrize("bits", [None, 6])
@@ -254,3 +260,95 @@ def test_crossbar_and_schur_entries_refuse_other_types(dtype):
     a = torch.zeros((4, 4))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tops.schur_update(a, a.to(dtype), a)
+
+
+# ----------------------------- flash_attention -----------------------------
+
+def _attn_inputs(bh, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(bh, s, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("bh,s,d", [
+    (2, 128, 128),     # single tile
+    (1, 384, 128),     # 3x3 K blocks, causal skipping
+    (2, 200, 128),     # ragged S
+    (2, 200, 64),      # ragged S, the host-scale head dim
+    (3, 64, 64),       # shorter than one JAX block
+])
+def test_flash_ref_and_wrapper_match_jax_oracle_and_pallas(bh, s, d):
+    q, k, v = _attn_inputs(bh, s, d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = jops.flash_attention(jq, jk, jv, interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv)
+    before = tflash.flash_attention.launches
+    for got in (tref.flash_attention_ref(t(q), t(k), t(v)),
+                tops.flash_attention(t(q), t(k), t(v))):
+        for want in (pallas, oracle):
+            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                       rtol=2e-5, atol=2e-5)
+    assert tflash.flash_attention.launches == before
+
+
+def test_flash_non_causal_matches_jax():
+    q, k, v = _attn_inputs(2, 128, 64, seed=1)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = jops.flash_attention(jq, jk, jv, causal=False, interpret=True)
+    for got in (tref.flash_attention_ref(t(q), t(k), t(v), causal=False),
+                tops.flash_attention(t(q), t(k), t(v), causal=False)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        np.asarray(want), np.asarray(jref.flash_attention_ref(
+            jq, jk, jv, causal=False)), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+def test_flash_dtypes_match_jax(dtype, tol):
+    q, k, v = _attn_inputs(2, 256, 128, seed=2)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    # the same rounded inputs on both sides
+    tq, tk, tv = (t(np.asarray(x, np.float32)).to(getattr(torch, dtype))
+                  for x in (jq, jk, jv))
+    want_kernel = jops.flash_attention(jq, jk, jv, interpret=True)
+    want_oracle = jref.flash_attention_ref(jq, jk, jv)
+    got_wrapper = tops.flash_attention(tq, tk, tv)
+    got_ref = tref.flash_attention_ref(tq, tk, tv)
+    assert got_wrapper.dtype == got_ref.dtype == getattr(torch, dtype)
+    for got in (got_wrapper, got_ref):
+        for want in (want_kernel, want_oracle):
+            np.testing.assert_allclose(
+                got.float().numpy(), np.asarray(want, np.float32),
+                rtol=tol, atol=tol)
+
+
+def test_flash_entry_refuses_other_types_and_unaligned_full_attention():
+    q = torch.zeros((1, 128, 64))
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tops.flash_attention(q.to(dtype), q, q)
+    with pytest.raises(ValueError, match="S % 128"):
+        tops.flash_attention(q[:, :100], q[:, :100], q[:, :100],
+                             causal=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, q, q)
+
+
+def test_bf16_rounding_rule_catches_a_fault_in_later_rows():
+    """The card's bf16 attention check (`bf16_rounding_close`, also in
+    chip_smoke.py phase 11): an exactly rounded output passes, and a 2%
+    error in the later query tiles - whose outputs are ~1/sqrt(row) of the
+    first rows' - fails, though it stays inside 1/128 of max|out|."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((4, 512, 128), generator=gen).bfloat16()
+               for _ in range(3))
+    want = tref.flash_attention_ref(q.float(), k.float(), v.float())
+    rounded = want.bfloat16().float()
+    bf16_rounding_close(rounded, want)
+    faulty = rounded.clone()
+    faulty[:, 256:] *= 1.02
+    scaled_close(faulty, want, 1 / 128)
+    with pytest.raises(AssertionError, match="bf16 limit"):
+        bf16_rounding_close(faulty, want)
