@@ -13,7 +13,9 @@ language-model serving path (glm4-9b prefill and decode).  Phases
 (every check raises; nothing is caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
-  2. build the kernels (one nvcc per source, in parallel);
+  2. build the kernels (one nvcc per source, in parallel), with each
+     kernel's registers and spills and the tensor-core kernels' shared
+     memory;
   3. the arena kernel against its plain version at the main path's
      shapes and three others, with times (CUDA events) and the bound;
   4. the main path: a `SolverService` at the paper's Fig. 8 configuration
@@ -44,7 +46,7 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      on one INV bucket stack of the Fig. 8 plan; the Schur kernel at
      n=512 and 1024 (float32) and 128 (bfloat16) - each timed through
      `kernels.ops` and held against its plain version (Schur also timed
-     against `torch.addmm`);
+     against `torch.addmm`, with the ratio of the two);
  10. the example's path: the tile solver at n=1024 (stages=3, 128x128,
      sigma 0 / 0.01 / 0.05) against float64, a programmed 256x256
      two-stage solver with 16 rhs and its refined solve, the hybrid
@@ -56,7 +58,8 @@ language-model serving path (glm4-9b prefill and decode).  Phases
  11. the attention kernel against its plain version at (BH, S, D) =
      (128, 1024, 128) bf16 (phase 12's prefill), (32, 8192, 128) bf16,
      (8, 1000, 64) f32 (ragged) and (16, 1024, 128) f32 non-causal, timed
-     beside the plain version and `scaled_dot_product_attention`;
+     beside the plain version and `scaled_dot_product_attention`, with the
+     ratio of the kernel's time to the latter's;
  12. the language-model serving path at glm4-9b's full width and depth
      (bf16, random weights from a seeded CUDA generator):
      `Engine.generate` of 32 greedy tokens after a (4, 1024) prompt (40
@@ -87,6 +90,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM data sheet, dense tf32 tensor cores
 F64_FLOP_PER_S = 67e12         # H100 SXM data sheet, FP64 Tensor Core (the
 #                                sweeps are matrix products)
 KERNEL_REL_TOL = 1e-5   # kernel vs plain: reassociated f32 sums
@@ -531,12 +535,17 @@ def _xbar_bound(l, b, r, c):
 
 def _schur_bound(i, j, k, size=4):
     """Least time of one Schur call: a4, a3, w (`size` bytes each) read
-    once, the float32 output written once; 2*I*J*K flops over the peak of
-    the inputs' type (bf16 products are exact in f32 with an f32 sum, so
-    the bf16 tensor cores compute the same function)."""
-    return _roofline(size * (i * j + i * k + k * j) + 4 * i * j,
-                     2 * i * j * k,
-                     BF16_FLOP_PER_S if size == 2 else F32_FLOP_PER_S)
+    once, the float32 output written once; the products at the card's
+    fastest rate for the function: bf16 inputs as 2*I*J*K flops on the
+    bf16 tensor cores (bf16 products are exact in f32 with an f32 sum),
+    float32 as 3xTF32, three products of 2*I*J*K flops on the tf32 tensor
+    cores (as close to the f32 function as f32 FMAs, and faster than the
+    CUDA cores' 67 TFLOP/s)."""
+    if size == 2:
+        return _roofline(2 * (i * j + i * k + k * j) + 4 * i * j,
+                         2 * i * j * k, BF16_FLOP_PER_S)
+    return _roofline(4 * (2 * i * j + i * k + k * j), 3 * 2 * i * j * k,
+                     TF32_FLOP_PER_S)
 
 
 def _bench_phase(dev):
@@ -650,7 +659,9 @@ def _bench_phase(dev):
             lib_ms = _time_ms(library, reps=7, per_batch=20)
             lib_graph_ms = _graph_ms(library)
             lib = (f", torch.addmm {lib_ms:.4f} ms (graph "
-                   f"{lib_graph_ms:.4f})")
+                   f"{lib_graph_ms:.4f}; the kernel takes "
+                   f"{ms / lib_ms:.3f}x its time, graph "
+                   f"{graph_ms / lib_graph_ms:.3f}x)")
         print(f"  kernel {ms:.4f} ms (graph {graph_ms:.4f}), plain "
               f"{plain_ms:.4f} ms (graph {plain_graph_ms:.4f}){lib}, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
@@ -658,8 +669,9 @@ def _bench_phase(dev):
         stats.setdefault(key, {})[label] = dict(
             err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
             plain_graph_ms=plain_graph_ms, library_ms=lib_ms,
-            library_graph_ms=lib_graph_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
+            library_graph_ms=lib_graph_ms,
+            library_ratio=None if lib_ms is None else ms / lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
     return stats, launches
 
 
@@ -936,11 +948,12 @@ def _flash_phase(dev):
             per_batch=3)
         bound_ms, bound_by = _flash_bound(bh, s, d, dtype, causal)
         print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
-              f"bound")
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (the kernel "
+              f"takes {ms / lib_ms:.3f}x its time), bound {bound_ms:.4f} ms "
+              f"({bound_by}), {bound_ms / ms:.2%} of the bound")
         stats[label] = dict(err=err, bf16_ratio=ratio, ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
+                            library_ratio=ms / lib_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
         del q, k, v, out
         torch.cuda.empty_cache()
@@ -1119,6 +1132,36 @@ def _lm_phase(dev):
                           route_err=err, bf16_agree=agree)
 
 
+def _print_ptxas(log):
+    """Each kernel instance's registers, static shared memory and spills,
+    from the compiler's `-Xptxas -v` report, under its name."""
+    import re
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"\d([a-z]+(?:_[a-z0-9]+)*_kernel)(I\w*?EE)?",
+                             entry[1])       # after its length prefix
+            print(f"    {name[1] + (name[2] or '') if name else entry[1]}:")
+        elif "registers" in line or "spill" in line or "smem" in line:
+            print(f"      {line.strip()}")
+
+
+def _print_smem(build):
+    """The dynamic shared memory a block of the tensor-core kernels takes
+    (ptxas reports static shared memory only)."""
+    import ctypes
+    flash, schur = build.load("flash_attention"), build.load("schur_gemm")
+    for fn in (flash.flash_smem_bytes, schur.schur_smem_bytes):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    print("  dynamic shared memory a block: flash bf16 D=128 "
+          f"{flash.flash_smem_bytes(1, 128)} B, D=64 "
+          f"{flash.flash_smem_bytes(1, 64)} B; flash f32 D=128 "
+          f"{flash.flash_smem_bytes(0, 128)} B; Schur 3xTF32 64-row tiles "
+          f"{schur.schur_smem_bytes(0, 1)} B, 32-row "
+          f"{schur.schur_smem_bytes(0, 0)} B; Schur bf16 "
+          f"{schur.schur_smem_bytes(1, 1)} B")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for val in tree.values():
@@ -1163,9 +1206,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
     for name, info in built.items():
         print(f"  {name}: {info['seconds']:.2f} s -> {info['path']}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    {line.strip()}")
+        _print_ptxas(info["log"])
+    _print_smem(_build)
 
     # -- 3. the kernel against its plain version ---------------------------
     print("phase 3: arena kernel vs plain version on the card")
@@ -1398,6 +1440,7 @@ def main() -> int:
             "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],
             "library_ms": st["library_ms"],
+            "library_ratio": st["library_ratio"],
             "graph_ms": st["graph_ms"],
             "launches_by_path": by_path,
             "shapes": bench_stats[name],
@@ -1415,6 +1458,7 @@ def main() -> int:
         "bound_ms": st["bound_ms"],
         "bound_by": st["bound_by"],
         "library_ms": st["library_ms"],
+        "library_ratio": st["library_ratio"],
         "launches_by_path": {"glm4-9b Engine.generate (phase 12)":
                                  lm_launches},
         "shapes": flash_stats,

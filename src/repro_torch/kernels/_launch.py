@@ -1,5 +1,6 @@
 """What the ctypes launchers of `csrc/` share: the card's limits, the
-grid's column slice sized to them, and the argument checks."""
+grid's column slice sized to them, the argument checks and the launch on
+the current stream."""
 from __future__ import annotations
 
 import functools
@@ -42,3 +43,18 @@ def check(name, t, dtype, shape, device):
             f"{name}: need a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def launch_on(device: torch.device, launch):
+    """launch(stream) with `device` the current device and `stream` the raw
+    handle (an int) of PyTorch's current stream there, where the kernels
+    run.  The device guard is entered only when `device` is not current
+    already, and the handle is read without building a `torch.cuda.Stream`:
+    both cost microseconds a call, which a small launch notices.  The
+    handle comes from `torch._C._cuda_getCurrentRawStream`, the accessor
+    PyTorch's own generated kernels launch with; every wrapper of
+    `kernels/` launches through here."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return launch(torch._C._cuda_getCurrentRawStream(device.index))

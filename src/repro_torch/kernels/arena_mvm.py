@@ -23,7 +23,7 @@ import torch
 from repro_torch.core.quantization import quantizer_step
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check as _check
-from repro_torch.kernels._launch import column_slice, num_sms
+from repro_torch.kernels._launch import column_slice, launch_on, num_sms
 
 
 @functools.cache
@@ -69,13 +69,11 @@ def arena_packed_apply(arena: torch.Tensor, ops: torch.Tensor,
     dac_step = quantizer_step(dac_bits, fullscale) if dac_bits else 0.0
     adc_step = quantizer_step(adc_bits, fullscale) if adc_bits else 0.0
     lib, fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(arena.data_ptr(), ops.data_ptr(), in_offs.data_ptr(),
-                 in_signs.data_ptr(), out_offs.data_ptr(),
-                 out_init.data_ptr(), m, s, k, t, r, c, j,
-                 column_slice(m, k, num_sms(dev)), dac_bits or 0, dac_step,
-                 adc_bits or 0, adc_step, fullscale, stream)
+    err = launch_on(dev, lambda stream: fn(
+        arena.data_ptr(), ops.data_ptr(), in_offs.data_ptr(),
+        in_signs.data_ptr(), out_offs.data_ptr(), out_init.data_ptr(), m, s,
+        k, t, r, c, j, column_slice(m, k, num_sms(dev)), dac_bits or 0,
+        dac_step, adc_bits or 0, adc_step, fullscale, stream))
     if err != 0:
         raise RuntimeError(f"arena kernel launch failed: "
                            f"{lib.arena_error_string(err).decode()}")

@@ -21,8 +21,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import (check, column_slice, num_sms,
-                                         smem_optin)
+from repro_torch.kernels._launch import (check, column_slice, launch_on,
+                                         num_sms, smem_optin)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -70,10 +70,9 @@ def block_tridiag_solve(minv: torch.Tensor, rhs: torch.Tensor, *,
                       fits=lambda kb: smem_bytes(kb, s, dtype) <= smem_max)
     out = torch.empty_like(rhs)
     lib, fn = _entry(dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(minv.data_ptr(), rhs.data_ptr(), out.data_ptr(), b, nr, s,
-                 k, kb, float(gw), stream)
+    err = launch_on(dev, lambda stream: fn(
+        minv.data_ptr(), rhs.data_ptr(), out.data_ptr(), b, nr, s, k, kb,
+        float(gw), stream))
     if err != 0:
         raise RuntimeError(f"block-Thomas kernel launch failed: "
                            f"{lib.block_tridiag_error_string(err).decode()}")

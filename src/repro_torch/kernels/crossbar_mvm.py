@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.quantization import quantizer_step
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check
+from repro_torch.kernels._launch import check, launch_on
 
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
@@ -68,13 +68,11 @@ def _launch(v, gpos, gneg, g0, dac_bits, adc_bits, fullscale):
     dac_step = quantizer_step(dac_bits, fullscale) if dac_bits else 0.0
     adc_step = quantizer_step(adc_bits, fullscale) if adc_bits else 0.0
     lib, fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(v.data_ptr(), gpos.data_ptr(), gneg.data_ptr(),
-                 out.data_ptr(), int(v.dtype == torch.bfloat16),
-                 int(gpos.dtype == torch.bfloat16), l, b, r, c,
-                 -(1.0 / g0), dac_bits or 0, dac_step, adc_bits or 0,
-                 adc_step, fullscale, stream)
+    err = launch_on(dev, lambda stream: fn(
+        v.data_ptr(), gpos.data_ptr(), gneg.data_ptr(), out.data_ptr(),
+        int(v.dtype == torch.bfloat16), int(gpos.dtype == torch.bfloat16),
+        l, b, r, c, -(1.0 / g0), dac_bits or 0, dac_step, adc_bits or 0,
+        adc_step, fullscale, stream))
     if err != 0:
         raise RuntimeError(f"crossbar kernel launch failed: "
                            f"{lib.crossbar_error_string(err).decode()}")

@@ -3,7 +3,8 @@ which replaces the Pallas TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`: causal (or full)
 online-softmax attention forward over (BH, S, D), scores and
 probabilities in float32, `scale = D**-0.5`, the output in the inputs'
-type.
+type.  bfloat16 runs on the tensor cores (TMA, wgmma; p enters p.v as the
+two bf16 parts of its float32 value), float32 on the CUDA cores.
 
 `flash_attention` here takes CUDA tensors only and launches the kernel on
 the current stream; `kernels/ops.py` is the public entry point with the
@@ -18,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check
+from repro_torch.kernels._launch import check, launch_on
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128)
@@ -69,11 +70,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty_like(q)
     lib, fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 int(dtype == torch.bfloat16), bh, s, d, float(d ** -0.5),
-                 int(causal), stream)
+    err = launch_on(dev, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(dtype == torch.bfloat16), bh, s, d, float(d ** -0.5),
+        int(causal), stream))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: "
                            f"{lib.flash_error_string(err).decode()}")

@@ -129,12 +129,11 @@ def schur_update(a4, a3, w):
     """Fused A4 - A3 @ W (see `kernels/schur_gemm.py`): a4 (I, J),
     a3 (I, K), w (K, J) -> (I, J) float32, any shapes; float32 or
     bfloat16 in (any other type raises)."""
-    dtype = _kernel_dtype(a4, a3, w)
-    if a4.device.type == "cpu":
+    dtype, dev = _kernel_dtype(a4, a3, w), a4.device
+    if dev.type == "cpu":
         return _ref.schur_update_ref(a4, a3, w)
-    if a4.device.type != "cuda":
-        raise ValueError(f"no Schur kernel for device {a4.device}")
-    dev = a4.device
+    if dev.type != "cuda":
+        raise ValueError(f"no Schur kernel for device {dev}")
     return _schur.schur_update(
         *(x.to(device=dev, dtype=dtype).contiguous() for x in (a4, a3, w)))
 

@@ -5,6 +5,9 @@
     out = A4 - A3 @ W        (accumulator loaded from A4, products
                               subtracted, one store)
 
+on the tensor cores: float32 as 3xTF32 (wgmma), bfloat16 as one bf16
+product (mma.sync), float32 sums either way.
+
 `schur_update` here takes CUDA tensors only and launches the kernel on the
 current stream; `kernels/ops.py` is the public entry point with the dtype
 policy and the CPU dispatch.  `schur_update.launches` counts the launches
@@ -18,11 +21,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check
+from repro_torch.kernels._launch import check, launch_on, num_sms
 
 DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
-_BLOCK_ROWS = 64            # BI of the kernel: output rows per block
+_BLOCK_ROWS = 32            # the kernel's smallest tile: 32 output rows
 
 
 @functools.cache
@@ -30,7 +33,7 @@ def _entry():
     """The C entry point with its argument types declared (once)."""
     lib = _build.load("schur_gemm")
     fn = lib.schur_update_apply
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.schur_error_string.argtypes = [ctypes.c_int]
@@ -59,12 +62,11 @@ def schur_update(a4: torch.Tensor, a3: torch.Tensor,
     check("w", w, dtype, (k, j), dev)
     if -(-i // _BLOCK_ROWS) > _MAX_GRID_Y:
         raise ValueError(f"{i} rows exceed the grid")
-    out = torch.empty((i, j), dtype=torch.float32, device=dev)
+    out = a4.new_empty((i, j), dtype=torch.float32)
     lib, fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a4.data_ptr(), a3.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 int(dtype == torch.bfloat16), i, j, k, stream)
+    err = launch_on(dev, lambda stream: fn(
+        a4.data_ptr(), a3.data_ptr(), w.data_ptr(), out.data_ptr(),
+        int(dtype == torch.bfloat16), i, j, k, num_sms(dev), stream))
     if err != 0:
         raise RuntimeError(f"Schur kernel launch failed: "
                            f"{lib.schur_error_string(err).decode()}")

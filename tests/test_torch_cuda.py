@@ -238,7 +238,12 @@ def test_crossbar_kernel_matches_plain_version(cuda, l, b, r, c, bits,
 @pytest.mark.parametrize("i,j,k,dtype", [
     (128, 128, 128, torch.float32), (256, 128, 384, torch.float32),
     (100, 60, 130, torch.float32), (1, 1, 1, torch.float32),
-    (128, 96, 64, torch.bfloat16)])
+    (128, 96, 64, torch.bfloat16),
+    (1024, 1024, 1024, torch.float32),    # 3xTF32 at the bench's n
+    (33, 257, 1000, torch.float32),       # rows of W not 16-byte aligned
+    (1024, 1023, 1001, torch.float32),    # 64-row tiles, rows unaligned
+    (300, 200, 72, torch.bfloat16),
+    (130, 100, 70, torch.bfloat16)])      # bf16 rows not 16-byte aligned
 def test_schur_kernel_matches_plain_version(cuda, i, j, k, dtype):
     gen = torch.Generator(device=cuda).manual_seed(i + j + k)
     a4, a3, w = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
@@ -304,6 +309,20 @@ def test_fused_preconditioner_is_one_arena_launch_per_application(cuda):
     (5, 77, 64, torch.float32, True),         # one partial tile
     (8, 512, 128, torch.bfloat16, True),
     (2, 300, 64, torch.bfloat16, True),
+    # the bf16 tensor-core kernel: partial and single tiles, both head
+    # dims, full attention and the longest causal walk
+    (1, 1, 64, torch.bfloat16, True),
+    (1, 1, 128, torch.bfloat16, True),
+    (1, 64, 64, torch.bfloat16, True),
+    (1, 64, 128, torch.bfloat16, True),
+    (1, 127, 64, torch.bfloat16, True),
+    (1, 127, 128, torch.bfloat16, True),
+    (1, 129, 64, torch.bfloat16, True),
+    (1, 129, 128, torch.bfloat16, True),
+    (1, 1000, 64, torch.bfloat16, True),
+    (1, 1000, 128, torch.bfloat16, True),
+    (2, 256, 128, torch.bfloat16, False),
+    (2, 4096, 128, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, causal):
     gen = torch.Generator(device=cuda).manual_seed(bh * s + d)

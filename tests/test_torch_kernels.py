@@ -352,3 +352,76 @@ def test_bf16_rounding_rule_catches_a_fault_in_later_rows():
     scaled_close(faulty, want, 1 / 128)
     with pytest.raises(AssertionError, match="bf16 limit"):
         bf16_rounding_close(faulty, want)
+
+
+# ------------------ the tensor-core kernels' numerics, emulated ------------
+# The CUDA kernels run on the card only; these tests emulate their rounding
+# in plain torch on the host, at the sizes the card checks, to show why each
+# kernel splits its operands.
+
+def _tf32(x):
+    """float32 rounded to TF32 as `cvt.rna.tf32.f32`: 10 mantissa bits,
+    ties away from zero (on the bit pattern, so negatives alike)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_schur_needs_3xtf32_to_hold_the_float32_rule():
+    """`csrc/schur_gemm.cu` in float32: one TF32 product lands ~3e-4 of
+    max|out| from the float32 plain version at n=1024, over the kernel's
+    1e-5; the 3xTF32 split (small.big + big.small + big.big, each product
+    exact in float32) holds it."""
+    rng = np.random.default_rng(1024)
+    a4, a3, w = (t(rng.normal(size=(1024, 1024)).astype(np.float32))
+                 for _ in range(3))
+    want = tref.schur_update_ref(a4, a3, w)
+    a_big, w_big = _tf32(a3), _tf32(w)
+    a_small, w_small = _tf32(a3 - a_big), _tf32(w - w_big)
+    three = a4 - a_small @ w_big - a_big @ w_small - a_big @ w_big
+    scaled_close(three, want, 1e-5)
+    with pytest.raises(AssertionError):
+        scaled_close(a4 - a_big @ w_big, want, 1e-5)
+
+
+def _online_attention_bf16(q, k, v, split, bk=128):
+    """The bf16 attention kernel's arithmetic on float32 copies of bf16
+    (BH, S, D) inputs, causal: bk-key tiles, online softmax in float32, the
+    p.v product on bf16 p - rounded once, or split into p_hi + p_lo - with
+    float32 sums; the output rounded once to bf16."""
+    bh, s, d = q.shape
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        sc = (q @ kt.transpose(1, 2)) * d ** -0.5
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        sc = sc.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vt
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vt
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16().float()
+
+
+def test_attention_needs_split_p_to_hold_the_bf16_rule():
+    """`csrc/flash_attention.cu` in bf16: with p rounded once to bf16 for
+    the tensor cores' p.v (as scaled_dot_product_attention does) outputs
+    fall far outside the card's element-wise rule (2^-8 |ref| + 1e-5
+    max|ref| against the float32 function); p = p_hi + p_lo, two bf16
+    products into one float32 sum, holds it at (8, 1024, 128)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (t(rng.normal(size=(8, 1024, 128)).astype(np.float32),
+                 torch.bfloat16).float() for _ in range(3))
+    want = tref.flash_attention_ref(q, k, v)
+    bf16_rounding_close(_online_attention_bf16(q, k, v, split=True), want)
+    with pytest.raises(AssertionError, match="bf16 limit"):
+        bf16_rounding_close(_online_attention_bf16(q, k, v, split=False),
+                            want)
