@@ -56,8 +56,9 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      service's `solve_refined` and `flush(refined=True)`, and the
      area/energy verdict;
  11. the attention kernel against its plain version at (BH, S, D) =
-     (128, 1024, 128) bf16 (phase 12's prefill), (32, 8192, 128) bf16,
-     (8, 1000, 64) f32 (ragged) and (16, 1024, 128) f32 non-causal, timed
+     (128, 1024, 128) bf16 and f32 (phase 12's prefill and its float32
+     route check), (32, 8192, 128) bf16, (8, 1000, 64) f32 (ragged) and
+     (16, 1024, 128) f32 non-causal, timed
      beside the plain version and `scaled_dot_product_attention`, with the
      ratio of the kernel's time to the latter's;
  12. the language-model serving path at glm4-9b's full width and depth
@@ -238,12 +239,15 @@ def _program_meta(blockamc, cfg, n, device):
 
 def _banded_bound(b, nr, s, k, dtype):
     """Least time of one block-Thomas call: minv, rhs read once and out
-    written once over HBM; 4*nr*s^2*k flops a batch element over the
-    dtype's peak."""
+    written once over HBM; 4*nr*s^2*k flops a batch element at the card's
+    rate for the dtype's function - float64 on the FP64 tensor cores,
+    float32 as 3xTF32 on the tf32 tensor cores (three products each, the
+    card's fastest route to float32 accuracy; the kernel's own)."""
     f64 = dtype == torch.float64
+    flops = 4 * b * nr * s * s * k
     return _roofline((8 if f64 else 4) * b * nr * s * (s + 2 * k),
-                     4 * b * nr * s * s * k,
-                     F64_FLOP_PER_S if f64 else F32_FLOP_PER_S)
+                     flops if f64 else 3 * flops,
+                     F64_FLOP_PER_S if f64 else TF32_FLOP_PER_S)
 
 
 def _banded_phase(dev):
@@ -894,20 +898,22 @@ def _example_phase(dev, svc, mid, a_svc):
 def _flash_bound(bh, s, d, dtype, causal):
     """Least time of one attention call: q, k, v read once and out written
     once over HBM; 4*BH*D flops per live (row, key) pair - S(S+1)/2 of
-    them causal, S^2 full - over the peak of the inputs' type (bf16 on
-    the tensor cores, which compute the same function)."""
-    elt = 2 if dtype == torch.bfloat16 else 4
+    them causal, S^2 full - at the card's rate for the function: bf16 on
+    the bf16 tensor cores (bf16 products are exact), float32 as 3xTF32
+    (three tf32 products each) on the tf32 tensor cores."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    return _roofline(4 * bh * s * d * elt, 4 * bh * d * pairs,
-                     BF16_FLOP_PER_S if dtype == torch.bfloat16
-                     else F32_FLOP_PER_S)
+    flops = 4 * bh * d * pairs
+    if dtype == torch.bfloat16:
+        return _roofline(4 * bh * s * d * 2, flops, BF16_FLOP_PER_S)
+    return _roofline(4 * bh * s * d * 4, 3 * flops, TF32_FLOP_PER_S)
 
 
 def _flash_phase(dev):
     """Phase 11: the attention kernel against its plain version on the
     card, at the phase-12 prefill's own shape (BH, S, D) = (128, 1024,
-    128) bf16, a long (32, 8192, 128) bf16, a ragged (8, 1000, 64) f32 and
-    a full (non-causal) (16, 1024, 128) f32.  float32: KERNEL_REL_TOL of
+    128) in bf16 and in f32 (the float32 route check's), a long (32, 8192,
+    128) bf16, a ragged (8, 1000, 64) f32 and a full (non-causal) (16,
+    1024, 128) f32.  float32: KERNEL_REL_TOL of
     max|out|; bfloat16: against the plain version evaluated in float32 on
     the same bf16 inputs, element by element (`_check_bf16_rounding`: the
     kernel rounds its float32 result to bf16 once).  Each row is timed
@@ -918,6 +924,8 @@ def _flash_phase(dev):
     print("phase 11: attention kernel vs plain version on the card")
     gen = torch.Generator(device=dev).manual_seed(11)
     cases = [("serving prefill", 128, 1024, 128, torch.bfloat16, True),
+             ("serving prefill, float32", 128, 1024, 128, torch.float32,
+              True),
              ("long prefill", 32, 8192, 128, torch.bfloat16, True),
              ("ragged S", 8, 1000, 64, torch.float32, True),
              ("full attention", 16, 1024, 128, torch.float32, False)]
@@ -1151,15 +1159,22 @@ def _print_smem(build):
     (ptxas reports static shared memory only)."""
     import ctypes
     flash, schur = build.load("flash_attention"), build.load("schur_gemm")
+    banded = build.load("banded_solve")
     for fn in (flash.flash_smem_bytes, schur.schur_smem_bytes):
         fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    tridiag = banded.block_tridiag_smem_bytes
+    tridiag.argtypes, tridiag.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     print("  dynamic shared memory a block: flash bf16 D=128 "
           f"{flash.flash_smem_bytes(1, 128)} B, D=64 "
-          f"{flash.flash_smem_bytes(1, 64)} B; flash f32 D=128 "
-          f"{flash.flash_smem_bytes(0, 128)} B; Schur 3xTF32 64-row tiles "
+          f"{flash.flash_smem_bytes(1, 64)} B; flash f32 (3xTF32) D=128 "
+          f"{flash.flash_smem_bytes(0, 128)} B, D=64 "
+          f"{flash.flash_smem_bytes(0, 64)} B; Schur 3xTF32 64-row tiles "
           f"{schur.schur_smem_bytes(0, 1)} B, 32-row "
           f"{schur.schur_smem_bytes(0, 0)} B; Schur bf16 "
-          f"{schur.schur_smem_bytes(1, 1)} B")
+          f"{schur.schur_smem_bytes(1, 1)} B; block-Thomas f32 s=64 8 "
+          f"columns {tridiag(0, 64, 8)} B, s=256 16 columns "
+          f"{tridiag(0, 256, 16)} B, f64 s=64 8 columns "
+          f"{tridiag(1, 64, 8)} B")
 
 
 def _leaves(tree):

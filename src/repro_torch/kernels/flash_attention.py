@@ -3,8 +3,12 @@ which replaces the Pallas TPU kernel
 `repro/kernels/flash_attention.py::flash_attention`: causal (or full)
 online-softmax attention forward over (BH, S, D), scores and
 probabilities in float32, `scale = D**-0.5`, the output in the inputs'
-type.  bfloat16 runs on the tensor cores (TMA, wgmma; p enters p.v as the
-two bf16 parts of its float32 value), float32 on the CUDA cores.
+type.  Both types run on the tensor cores: bfloat16 as bf16 `wgmma` (TMA;
+p enters p.v as the two bf16 parts of its float32 value), float32 as
+3xTF32 `wgmma` (every operand, p included, split into two TF32 parts).
+Any S and any batch x heads (the grid is one-dimensional); D is 64 or 128
+(`HEAD_DIMS`): the model's route takes its chunked path for other head
+dims (`models/attention.py`).
 
 `flash_attention` here takes CUDA tensors only and launches the kernel on
 the current stream; `kernels/ops.py` is the public entry point with the
@@ -23,7 +27,6 @@ from repro_torch.kernels._launch import check, launch_on
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128)
-_MAX_GRID_Y = 65535
 
 
 @functools.cache
@@ -45,7 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor in their dtype.
 
     The three are contiguous, of one dtype (float32 or bfloat16), on one
-    CUDA device, with D in (64, 128), BH <= 65535 and 16-byte aligned data.
+    CUDA device, with D in (64, 128) and 16-byte aligned data.
     Any S: the kernel bounds-checks rows and keys itself.
     """
     if q.device.type != "cuda":
@@ -62,8 +65,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes head dim {HEAD_DIMS}, "
                          f"got {d}")
-    if bh > _MAX_GRID_Y:
-        raise ValueError(f"{bh} (batch x heads) exceed the grid")
     for name, x in (("q", q), ("k", k), ("v", v)):
         check(name, x, dtype, (bh, s, d), dev)
         if x.data_ptr() % 16:

@@ -6,13 +6,16 @@ The route of full-causal attention.  `attention`, `attention_prefill`
 (and `transformer.block_forward`, `forward`, `block_prefill`, `prefill`)
 take `use_flash`:
 
-- None (the default): the flash route when `window is None`, else the
-  q-chunked path `_chunked_attend`.  The flash route is
-  `kernels.ops.flash_attention`: the hand-written kernel for CUDA
-  tensors, its plain version for CPU tensors.
+- None (the default): the flash route where it has the case - no
+  sliding window, float32 or bfloat16 activations and, for CUDA tensors,
+  a head dim in `flash_attention.HEAD_DIMS` (64, 128) - else the
+  q-chunked path `_chunked_attend`, which, as the reference's default,
+  takes any head dim, dtype and batch.  The flash route is
+  `kernels.ops.flash_attention`: the hand-written kernel for CUDA tensors
+  (any batch x heads), its plain version, which takes any head dim, for
+  CPU tensors.
 - False: `_chunked_attend`.
-- True: the flash route; raises if `window is not None` (the kernel has
-  no sliding window).
+- True: the flash route; raises where it lacks the case.
 
 This is the one place the port's default differs from the reference,
 whose `forward` and `prefill` never set `use_flash` and so always take
@@ -48,10 +51,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import einsum, init_dense, mm, rope
 
 NEG_INF = -2.0 ** 30
+
+
+def _mask(scores: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """`scores` where `keep`, else NEG_INF in the scores' dtype (-inf in
+    float16, whose range it passes), as the reference's `jnp.where`."""
+    fill = torch.full((), NEG_INF, device=scores.device).to(scores.dtype)
+    return torch.where(keep, scores, fill)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
@@ -103,20 +114,27 @@ def _chunked_attend(q, k, v, positions, cfg: ModelConfig,
             near = (pos_i[:, None, :, None]
                     - positions[:, None, None, :]) < window
             mask = torch.logical_and(mask, near)
-        scores = scores.masked_fill(~mask, NEG_INF)
+        scores = _mask(scores, mask)
         w = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
         outs.append(einsum("bhqs,bshd->bqhd", w, v))
     return torch.cat(outs, dim=1).reshape(b, s, cfg.n_heads * hd)
 
 
-def _flash_route(use_flash: Optional[bool], window: Optional[int]) -> bool:
-    """Whether full-causal attention takes the flash route (see the module
-    docstring)."""
+def _flash_route(use_flash: Optional[bool], window: Optional[int],
+                 head_dim: int, dtype: torch.dtype, on_card: bool) -> bool:
+    """Whether causal attention takes the flash route (see the module
+    docstring) for activations of `dtype` and `head_dim`, on the card or
+    on the host."""
+    missing = ("sliding window" if window is not None else
+               f"{dtype} (only float32 or bfloat16)"
+               if dtype not in kflash.DTYPES else
+               f"head dim {head_dim} on the card (only {kflash.HEAD_DIMS})"
+               if on_card and head_dim not in kflash.HEAD_DIMS else None)
     if use_flash is None:
-        return window is None
-    if use_flash and window is not None:
-        raise ValueError("use_flash=True: the flash kernel has no sliding "
-                         "window")
+        return missing is None
+    if use_flash and missing is not None:
+        raise ValueError(f"use_flash=True: the flash kernel takes no "
+                         f"{missing}")
     return bool(use_flash)
 
 
@@ -148,7 +166,7 @@ def attention(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     `use_flash` picks the route (module docstring).
     """
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window):
+    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda):
         out = _flash_attend(q, k, v, cfg)
     else:
         out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)
@@ -168,7 +186,7 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window):
+    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda):
         out = _flash_attend(q, k, v, cfg)
     else:
         out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)
@@ -244,7 +262,7 @@ def attention_decode(params: Dict, x_t: torch.Tensor, cache: Dict,
         valid = age < torch.clamp(pos_b + 1, max=cache_len)[:, None]
     else:
         valid = slot_ids <= pos_b[:, None]
-    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    scores = _mask(scores, valid[:, None, None, None, :])
     w = torch.softmax(scores.to(torch.float32), dim=-1).to(x_t.dtype)
     out = einsum("bkgqs,bskd->bqkgd", w, v).reshape(b, 1, cfg.n_heads * hd)
     return mm(out, params["wo"]), {"k": k, "v": v}

@@ -133,7 +133,14 @@ def test_service_flush_all_is_one_launch(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nr,s,k,dtype", [
     (3, 5, 37, 7, torch.float32), (2, 4, 64, 33, torch.float64),
-    (1, 3, 300, 5, torch.float32), (4, 6, 64, 64, torch.float32)])
+    (1, 3, 300, 5, torch.float32), (4, 6, 64, 64, torch.float32),
+    # s not a multiple of the 64 x 32 tile (37: rows not 16-byte
+    # aligned), k not a multiple of the column slice, in both types;
+    # 20 x 64 and 40 x 64 columns take the 16- and 32-column slices
+    (2, 3, 100, 20, torch.float32), (2, 3, 100, 20, torch.float64),
+    (3, 4, 37, 9, torch.float64), (1, 4, 300, 17, torch.float64),
+    (2, 3, 64, 70, torch.float32), (20, 3, 64, 64, torch.float32),
+    (40, 2, 64, 64, torch.float32), (40, 2, 96, 50, torch.float64)])
 def test_block_tridiag_kernel_matches_plain_version(cuda, b, nr, s, k,
                                                     dtype):
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -148,6 +155,31 @@ def test_block_tridiag_kernel_matches_plain_version(cuda, b, nr, s, k,
     scaled_close(out.cpu(), ref.block_tridiag_solve_ref(minv, rhs,
                                                         gw=0.7).cpu(),
                  1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(4, 64), (2, 256)])
+def test_block_tridiag_kernel_on_real_crossbars(cuda, b, s):
+    """Real factor stacks and residual rhs (identity drive, k = s), as
+    phase 6 of chip_smoke.py builds them: the Minv recursion amplifies
+    rounding, so the float32 kernel is held to the float64 sweeps, within
+    4x the plain float32 sweeps' own error."""
+    from repro_torch.physics import nodal
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    g = torch.rand((b, s, s), generator=gen, device=cuda) * 100e-6
+    eye = torch.eye(s, device=cuda).expand(b, s, s)
+    minvs, rhs, _ = nodal._mvm_prepare(g, eye, 1.0)
+    before = banded_solve.block_tridiag_solve.launches
+    out = ops.block_tridiag_solve(minvs, rhs, gw=1.0)
+    torch.cuda.synchronize()
+    assert banded_solve.block_tridiag_solve.launches == before + 1
+    truth = ref.block_tridiag_solve_ref(minvs.double(), rhs.double(),
+                                        gw=1.0)
+
+    def rel(x):
+        return float((x.double() - truth).abs().max() / truth.abs().max())
+    plain = ref.block_tridiag_solve_ref(minvs, rhs, gw=1.0)
+    assert rel(out) <= 4 * rel(plain), (rel(out), rel(plain))
 
 
 @pytest.mark.cuda
@@ -335,6 +367,46 @@ def test_flash_kernel_matches_plain_version(cuda, bh, s, d, dtype, causal):
     assert out.dtype == dtype and out.shape == q.shape
     plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                     causal=causal)
+    if dtype == torch.float32:
+        scaled_close(out.cpu(), plain.cpu(), 1e-5)
+    else:
+        bf16_rounding_close(out.float().cpu(), plain.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 1000])
+def test_f32_flash_kernel_at_ragged_lengths(cuda, s, d, causal):
+    """The float32 (3xTF32) instance at lengths that are not a multiple of
+    its 64-row query tiles or 32-key tiles, both head dims, causal and
+    full (through the kernel's launcher: the public entry keeps the JAX
+    wrapper's S % 128 rule for full attention)."""
+    gen = torch.Generator(device=cuda).manual_seed(s * d + causal)
+    q, k, v = (torch.randn((3, s, d), generator=gen, device=cuda)
+               for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    scaled_close(out.cpu(), ref.flash_attention_ref(q, k, v,
+                                                    causal=causal).cpu(),
+                 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_more_heads_than_grid_y(cuda, dtype):
+    """BH = 70000 (batch x heads past gridDim.y's 65535; glm4-9b at batch
+    2048 has 65536): one launch of a one-dimensional grid."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((70000, 5, 64), generator=gen, device=cuda
+                           ).to(dtype) for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    plain = ref.flash_attention_ref(q.float(), k.float(), v.float())
     if dtype == torch.float32:
         scaled_close(out.cpu(), plain.cpu(), 1e-5)
     else:

@@ -92,6 +92,20 @@ def test_column_slice_fills_the_card():
         assert kb in (1, 2, 4, 8, 16, 32)
 
 
+def test_block_thomas_column_slice_is_the_narrowest_one_wave():
+    from repro_torch.kernels.banded_solve import column_slice as slice_of
+    sxm, optin = 132, 232448                        # H100 SXM, 227 KB
+
+    def need(s, kb):                                # ring + two carries
+        return 1024 + 6 * 16384 + 2 * 2 * -(-s // 32) * kb * 128 + 96
+    assert slice_of(4, 64, 64, sxm, optin, need) == 8      # solver path
+    assert slice_of(8, 256, 256, sxm, optin, need) == 16   # 128 blocks
+    assert slice_of(40, 64, 64, sxm, optin, need) == 32    # > 1 wave
+    assert slice_of(1, 5, 37, sxm, optin, need) == 8
+    assert slice_of(40, 256, 300, sxm, optin, need) == 16  # 32 too big
+    assert slice_of(1, 64, 1100, sxm, optin, need) == 0    # none fits
+
+
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -381,6 +395,68 @@ def test_schur_needs_3xtf32_to_hold_the_float32_rule():
     scaled_close(three, want, 1e-5)
     with pytest.raises(AssertionError):
         scaled_close(a4 - a_big @ w_big, want, 1e-5)
+
+
+def _tf32_product(a, b, three):
+    """a @ b as the tensor cores compute it in float32: one TF32 product,
+    or 3xTF32 (small.big + big.small + big.big, each product exact in
+    float32), the sums in float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if not three:
+        return a_big @ b_big
+    return (_tf32(a - a_big) @ b_big + a_big @ _tf32(b - b_big)
+            + a_big @ b_big)
+
+
+@pytest.mark.parametrize("three", [False, True])
+def test_f32_attention_needs_3xtf32_with_split_p(three):
+    """`csrc/flash_attention.cu` in float32: with one TF32 product in Q K^T
+    and in P V, full attention at (8, 1024, 128) lands ~7e-4 of max|out|
+    from the float32 function, 70x the card's rule (1e-5 of max|out|);
+    3xTF32 in both, p split in two TF32 parts too, holds it."""
+    rng = np.random.default_rng(8)
+    q, k, v = (t(rng.normal(size=(8, 1024, 128)).astype(np.float32))
+               for _ in range(3))
+    want = tref.flash_attention_ref(q, k, v, causal=False)
+    s = _tf32_product(q, k.transpose(1, 2), three) * 128 ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    got = _tf32_product(p, v, three) / p.sum(-1, keepdim=True)
+    if three:
+        scaled_close(got, want, 1e-5)
+    else:
+        with pytest.raises(AssertionError):
+            scaled_close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("three", [False, True])
+def test_block_thomas_needs_3xtf32_on_a_real_crossbar(three):
+    """`csrc/banded_solve.cu` in float32: on a real 64 x 64 crossbar's
+    factor stack (built as phase 6 of chip_smoke.py builds it), sweeps
+    with one TF32 product land hundreds of times further from the float64
+    sweeps than the plain float32 sweeps do; 3xTF32 stays within the
+    card's limit, 4x the plain version's own error."""
+    from repro_torch.physics import nodal
+    rng = np.random.default_rng(64)
+    g = t(rng.random((1, 64, 64)).astype(np.float32)) * 100e-6
+    minvs, rhs, _ = nodal._mvm_prepare(g, torch.eye(64)[None], 1.0)
+    truth = tref.block_tridiag_solve_ref(minvs.double(), rhs.double(),
+                                         gw=1.0)
+
+    def rel(x):
+        return float((x.double() - truth).abs().max() / truth.abs().max())
+
+    nr = rhs.shape[1]
+    z, zs = torch.zeros_like(rhs[:, 0]), []
+    for i in range(nr):
+        z = _tf32_product(minvs[:, i], rhs[:, i] + z, three)
+        zs.append(z)
+    x, xs = torch.zeros_like(z), [None] * nr
+    for i in reversed(range(nr)):
+        x = zs[i] + _tf32_product(minvs[:, i], x, three)
+        xs[i] = x
+    err = rel(torch.stack(xs, 1))
+    limit = 4 * rel(tref.block_tridiag_solve_ref(minvs, rhs, gw=1.0))
+    assert (err <= limit) == three, (err, limit)
 
 
 def _online_attention_bf16(q, k, v, split, bk=128):

@@ -181,6 +181,51 @@ def test_attention_window_route(model):
                         window=4, use_flash=True)
 
 
+@pytest.mark.parametrize("head_dim,dtype", [
+    (96, torch.float32), (256, torch.float32), (96, torch.bfloat16),
+    (256, torch.bfloat16), (64, torch.float16), (128, torch.float16)])
+def test_flash_route_takes_the_chunked_path_where_the_kernel_lacks_the_case(
+        head_dim, dtype):
+    """On the card (`on_card=True`) the default route takes the chunked
+    path for a head dim or dtype the attention kernel has no instance for,
+    as for a sliding window, and `use_flash=True` there raises."""
+    assert not tattn._flash_route(None, None, head_dim, dtype, True)
+    assert not tattn._flash_route(False, None, head_dim, dtype, True)
+    with pytest.raises(ValueError, match="flash kernel takes no"):
+        tattn._flash_route(True, None, head_dim, dtype, True)
+
+
+def test_flash_route_keeps_the_kernels_cases():
+    """The kernel's cases take the flash route on the card; on the host
+    its plain version takes any head dim (float16 has no flash route
+    anywhere, a sliding window none either)."""
+    for head_dim in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tattn._flash_route(None, None, head_dim, dtype, True)
+            assert tattn._flash_route(True, None, head_dim, dtype, True)
+    assert tattn._flash_route(None, None, 16, torch.float32, False)
+    assert tattn._flash_route(True, None, 96, torch.float32, False)
+    assert not tattn._flash_route(None, None, 64, torch.float16, False)
+    assert not tattn._flash_route(None, 4, 64, torch.float32, True)
+    with pytest.raises(ValueError, match="sliding window"):
+        tattn._flash_route(True, 4, 64, torch.float32, False)
+
+
+def test_float16_attention_computes_on_the_default_route(model):
+    """float16 activations, which the flash route refuses, take the
+    chunked path by default and match the reference's default (chunked)
+    attention in float16: 1e-2, float16's rounding through softmax."""
+    jcfg, tcfg, jp, tp, x, pos = _attn_inputs(model)
+    want = jattn.attention(jax.tree.map(lambda a: a.astype(jnp.float16), jp),
+                           jnp.asarray(x, jnp.float16), jnp.asarray(pos),
+                           jcfg)
+    got = tattn.attention({k: v.half() for k, v in tp.items()},
+                          torch.from_numpy(x).half(), torch.from_numpy(pos),
+                          tcfg)
+    assert got.dtype == torch.float16
+    _close(got.float(), np.asarray(want, np.float32), 1e-2)
+
+
 @pytest.mark.parametrize("window,cache_len", [(None, 16), (4, 4), (8, 8)])
 def test_attention_prefill_cache_matches(model, window, cache_len):
     jcfg, tcfg, jp, tp, x, pos = _attn_inputs(model)
