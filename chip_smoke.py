@@ -17,7 +17,12 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      kernel's registers and spills and the tensor-core kernels' shared
      memory;
   3. the arena kernel against its plain version at the main path's
-     shapes and three others, with times (CUDA events) and the bound;
+     shapes and three others, each with the instance it runs (shared-
+     memory slice or device-memory arena, column slice, ring slots),
+     its time back to back and replayed from a CUDA graph (CUDA events)
+     and the bound, and at the main path the chain of dependent tiles:
+     the first tile alone (launch, prologue, epilogue) and each further
+     tile;
   4. the main path: a `SolverService` at the paper's Fig. 8 configuration
      (n=256, stages=2, 64x64 arrays, sigma=0.05) programs 16 Wishart
      tenants, takes 8 right-hand sides each, answers them with one
@@ -25,7 +30,8 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      whole-program launch); answers checked against the plain path, and
      an ideal-config solve against a float64 solve;
   5. the per-level path (n=1024, 64x64 arrays, stages=2: mixed tile
-     shapes, one launch per level group) against the plain path;
+     shapes, one launch per level group) against the plain path, and
+     its steady time on the host clock;
   6. the block-Thomas kernel of the nodal wire model against its plain
      version on real factor stacks: the solver path's shapes (s=64), one
      readout chunk of Fig. 9's original AMC (s=256) and float64;
@@ -46,7 +52,8 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      on one INV bucket stack of the Fig. 8 plan; the Schur kernel at
      n=512 and 1024 (float32) and 128 (bfloat16) - each timed through
      `kernels.ops` and held against its plain version (Schur also timed
-     against `torch.addmm`, with the ratio of the two);
+     against `torch.addmm`, with the ratio of the two; each row's host
+     cost a call printed);
  10. the example's path: the tile solver at n=1024 (stages=3, 128x128,
      sigma 0 / 0.01 / 0.05) against float64, a programmed 256x256
      two-stage solver with 16 rhs and its refined solve, the hybrid
@@ -211,19 +218,45 @@ def _graph_ms(fn, reps: int = 5, per_graph: int = 20) -> float:
     return statistics.median(times)
 
 
-def _roofline(nbytes, flops, peak=F32_FLOP_PER_S):
+def _roofline(nbytes, flops, peak):
     """(least ms, what bounds it): bytes over HBM against flops over the
     peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return _roofline_s(nbytes, flops / peak)
 
 
-def _bound(m, s, k, t, r, c, j):
+def _f32_product_s(flops, dac_bits=None):
+    """Least seconds for a float32 product of `flops` (2 a multiply-add)
+    whose one operand is a DAC's output: the card's fastest route to the
+    float32 result.  Codes of at most 9 bits (|q| <= 256) are exact in
+    bf16 and a float32 G is exactly three bf16 parts, so three bf16
+    products (each exact in f32) at 989 TFLOP/s; codes of 10-12 bits are
+    exact in tf32, so two tf32 products (G_hi + G_lo) at 495 TFLOP/s;
+    otherwise 3xTF32, three tf32 products."""
+    if dac_bits and dac_bits <= 9:
+        return 3 * flops / BF16_FLOP_PER_S
+    if dac_bits and dac_bits <= 12:
+        return 2 * flops / TF32_FLOP_PER_S
+    return 3 * flops / TF32_FLOP_PER_S
+
+
+def _roofline_s(nbytes, op_s):
+    """(least ms, what bounds it): bytes over HBM against `op_s` seconds
+    of operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, op_s) * 1e3,
+            "bytes" if t_bytes >= op_s else "operations")
+
+
+def _bound(m, s, k, t, r, c, j, dac_bits=None):
     """Least time for one call: each input read once, each output written
-    once, over HBM; the gathers and products over the f32 peak."""
-    return _roofline(4 * (2 * m * s * k + m * t * r * c + 2 * t * j + 2 * t),
-                     m * t * k * (2 * r * c + 2 * j * c))
+    once, over HBM; against the operations: the products at the card's
+    fastest route to float32 (`_f32_product_s`; the DAC's output is one
+    operand) and the window sums' adds on the CUDA cores, which can run
+    beside them, whichever takes longer."""
+    return _roofline_s(
+        4 * (2 * m * s * k + m * t * r * c + 2 * t * j + 2 * t),
+        max(_f32_product_s(2 * m * t * k * r * c, dac_bits),
+            2 * m * t * k * j * c / F32_FLOP_PER_S))
 
 
 def _program_meta(blockamc, cfg, n, device):
@@ -529,12 +562,14 @@ def _nodal_serving_phase(dev, n=256, tenants=4, k=8):
     return banded, arena, prog
 
 
-def _xbar_bound(l, b, r, c):
+def _xbar_bound(l, b, r, c, bits):
     """Least time of one float32 crossbar call: v and both conductance
-    stacks read once, the output written once; the products and the
-    differential subtract over the f32 peak."""
-    return _roofline(4 * (l * b * c + 2 * l * r * c + l * b * r),
-                     2 * l * b * r * c + l * r * c)
+    stacks read once, the output written once over HBM; against the
+    products, 2*L*B*R*C flops, at the card's fastest route to float32
+    with the DAC's output as one operand (`_f32_product_s`: three bf16
+    products on codes of up to 9 bits, 3xTF32 on an ideal DAC)."""
+    return _roofline_s(4 * (l * b * c + 2 * l * r * c + l * b * r),
+                       _f32_product_s(2 * l * b * r * c, bits))
 
 
 def _schur_bound(i, j, k, size=4):
@@ -591,7 +626,8 @@ def _bench_phase(dev):
                 lambda v=v, gp=gp, gn=gn, kw=kw: ops.crossbar_mvm(
                     v, gp, gn, **kw),
                 lambda v=v, gp=gp, gn=gn, kw=kw: ref.crossbar_mvm_ref(
-                    v, gp, gn, **kw), None, _xbar_bound(1, b, r, c), bits))
+                    v, gp, gn, **kw), None, _xbar_bound(1, b, r, c, bits),
+                bits))
     for l, b, r, c in ((16, 64, 64, 64), (16, 128, 128, 128)):
         v = uniform((l, b, c), -1, 1)
         gp, gn = uniform((l, r, c), 0, g0), uniform((l, r, c), 0, g0)
@@ -601,7 +637,7 @@ def _bench_phase(dev):
             lambda v=v, gp=gp, gn=gn, kw=kw: ops.crossbar_mvm_batched(
                 v, gp, gn, **kw),
             lambda v=v, gp=gp, gn=gn, kw=kw: ref.crossbar_mvm_batched_ref(
-                v, gp, gn, **kw), None, _xbar_bound(l, b, r, c), 8))
+                v, gp, gn, **kw), None, _xbar_bound(l, b, r, c, 8), 8))
     # one INV bucket stack of the Fig. 8 configuration's flat plan
     cfg = AnalogConfig(array_size=64, nonideal=NonidealConfig(sigma=0.05))
     a = wishart(torch.Generator().manual_seed(8), 256, device=dev)
@@ -617,7 +653,7 @@ def _bench_phase(dev):
                                              g0=cfg.g0),
         lambda v=v: ref.crossbar_mvm_batched_ref(v, grid.gpos, grid.gneg,
                                                  g0=cfg.g0), None,
-        _xbar_bound(num, 8, s, s), None))
+        _xbar_bound(num, 8, s, s, None), None))
     for n, dtype in ((512, torch.float32), (1024, torch.float32),
                      (128, torch.bfloat16)):
         a4, a3, w = (torch.randn((n, n), generator=gen, device=dev
@@ -640,7 +676,12 @@ def _bench_phase(dev):
         out = kernel()                       # then the timed runs
         big = "1024" in label
         ms = _time_ms(kernel, reps=7, per_batch=5 if big else 20)
-        outs.append((out, ms, _graph_ms(kernel)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()             # the host's cost of a call:
+        for _ in range(20):                  # enqueueing, no waiting
+            kernel()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        outs.append((out, ms, _graph_ms(kernel), host_us))
     torch.cuda.synchronize()
     launches = {key: fn.launches for key, fn in counters.items()}
     print(f"  launches over the bench rows: {launches}")
@@ -649,7 +690,7 @@ def _bench_phase(dev):
             _fail(f"the bench rows never launched {key}")
     stats = {}
     for (key, label, _, plain, library, (bound_ms, bound_by), bits), \
-            (out, ms, graph_ms) in zip(rows, outs):
+            (out, ms, graph_ms, host_us) in zip(rows, outs):
         want = plain()
         if bits is None:
             err = _check_close(label, out, want, KERNEL_REL_TOL)
@@ -666,7 +707,8 @@ def _bench_phase(dev):
                    f"{lib_graph_ms:.4f}; the kernel takes "
                    f"{ms / lib_ms:.3f}x its time, graph "
                    f"{graph_ms / lib_graph_ms:.3f}x)")
-        print(f"  kernel {ms:.4f} ms (graph {graph_ms:.4f}), plain "
+        print(f"  kernel {ms:.4f} ms (graph {graph_ms:.4f}; the host "
+              f"{host_us:.1f} us a call), plain "
               f"{plain_ms:.4f} ms (graph {plain_graph_ms:.4f}){lib}, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.2%} of the "
               f"bound ({bound_ms / graph_ms:.2%} of graph time)")
@@ -675,7 +717,8 @@ def _bench_phase(dev):
             plain_graph_ms=plain_graph_ms, library_ms=lib_ms,
             library_graph_ms=lib_graph_ms,
             library_ratio=None if lib_ms is None else ms / lib_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by,
+            host_us=host_us)
     return stats, launches
 
 
@@ -1160,6 +1203,7 @@ def _print_smem(build):
     import ctypes
     flash, schur = build.load("flash_attention"), build.load("schur_gemm")
     banded = build.load("banded_solve")
+    xbar, arena = build.load("crossbar_mvm"), build.load("arena_mvm")
     for fn in (flash.flash_smem_bytes, schur.schur_smem_bytes):
         fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
     tridiag = banded.block_tridiag_smem_bytes
@@ -1175,6 +1219,14 @@ def _print_smem(build):
           f"columns {tridiag(0, 64, 8)} B, s=256 16 columns "
           f"{tridiag(0, 256, 16)} B, f64 s=64 8 columns "
           f"{tridiag(1, 64, 8)} B")
+    fn = xbar.crossbar_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    area = arena.arena_smem_bytes
+    area.argtypes, area.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    print(f"  crossbar tf32 {fn(0)} B (bf16 conductances {fn(1)} B); "
+          f"arena smem instance at the main path (S=704, T=23, J=3, "
+          f"C=64, 1 column, 3 slots) {area(704, 23, 3, 64, 1, 3)} B, "
+          f"16 columns {area(704, 23, 3, 64, 16, 3)} B")
 
 
 def _leaves(tree):
@@ -1238,6 +1290,8 @@ def main() -> int:
     stats = {}
     for label, m, k, rc, (meta, s), bits in cases:
         n_tiles, n_terms = meta[0].shape
+        # (instance, column slice, ring slots)
+        instance = arena_mvm.device_plan(dev, m, s, k, n_tiles, rc, n_terms)
         arena0 = torch.rand((m, s, k), generator=gen, device=dev) * 2 - 1
         ops = torch.randn((m, n_tiles, rc, rc), generator=gen, device=dev) \
             * (0.5 / rc ** 0.5)
@@ -1246,22 +1300,38 @@ def main() -> int:
         out = arena_mvm.arena_packed_apply(arena0.clone(), ops, *meta, **kw)
         torch.cuda.synchronize()
         what = (f"{label}: M={m} T={n_tiles} R=C={rc} J={n_terms} S={s} "
-                f"K={k}")
+                f"K={k}, instance {instance}")
         if bits is None:
             err = _check_close(what, out, plain, KERNEL_REL_TOL)
         else:
             err = _check_quantized(what, out, plain, 2.0 / (2 ** bits - 1))
         scratch = arena0.clone()
-        ms = _time_ms(lambda: arena_mvm.arena_packed_apply(
-            scratch, ops, *meta, **kw), reps=7, per_batch=20)
+
+        def kernel():
+            arena_mvm.arena_packed_apply(scratch, ops, *meta, **kw)
+        ms = _time_ms(kernel, reps=7, per_batch=20)
+        graph_ms = _graph_ms(kernel)
         plain_ms = _time_ms(lambda: ref.arena_packed_ref(
             arena0, ops, *meta, **kw), reps=3, per_batch=2)
-        bound_ms, bound_by = _bound(m, s, k, n_tiles, rc, rc, n_terms)
-        print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), "
+        bound_ms, bound_by = _bound(m, s, k, n_tiles, rc, rc, n_terms,
+                                    bits)
+        print(f"  kernel {ms:.4f} ms (graph {graph_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.2%} of the bound")
-        stats[label] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
+        stats[label] = dict(err=err, ms=ms, graph_ms=graph_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, instance=instance)
+        if label == "main path":    # the chain of dependent tiles
+            ops1 = ops[:, :1].contiguous()
+            meta1 = tuple(x[:1].contiguous() for x in meta)
+            first_ms = _graph_ms(lambda: arena_mvm.arena_packed_apply(
+                scratch, ops1, *meta1, **kw))
+            tile_ms = (graph_ms - first_ms) / (n_tiles - 1)
+            print(f"  the first tile alone {first_ms:.4f} ms (graph: "
+                  f"launch, prologue, epilogue); each further tile "
+                  f"{tile_ms:.5f} ms")
+            stats[label].update(first_tile_graph_ms=first_ms,
+                                tile_graph_ms=tile_ms)
 
     # -- 4. the main path: a solver service at Fig. 8's configuration -------
     print("phase 4: SolverService, n=256 stages=2 64x64 sigma=0.05, "
@@ -1365,6 +1435,16 @@ def main() -> int:
     _check_close("per-level kernel path vs plain path", xs,
                  blockamc.execute_arena(ap, b_big, use_kernel=False),
                  SOLVE_REL_TOL)
+    level_ms = []
+    for _ in range(5):                   # steady: host clock, synchronised
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big.solve_many(b_big)
+        torch.cuda.synchronize()
+        level_ms.append((time.perf_counter() - t0) * 1e3)
+    level_steady_ms = statistics.median(level_ms)
+    print(f"  steady solve_many ({groups} launches, host clock, median of "
+          f"5): {level_steady_ms:.3f} ms")
 
     # -- 6-8. the nodal wire model ----------------------------------------
     banded_stats = _banded_phase(dev)
@@ -1403,6 +1483,11 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "graph_ms": main["graph_ms"],
+        "instance": main["instance"],
+        "shapes": stats,
+        "steady_flush_all_ms": steady_ms,
+        "steady_per_level_ms": level_steady_ms,
         "launches_by_path": {"main path (flush_all + flush)": main_launches,
                              "per-level (n=1024)": level_launches,
                              "nodal serving (flush_all)": serve_arena,

@@ -38,7 +38,7 @@ def check(name, t, dtype, shape, device):
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
     `device`: what the kernels take."""
     if t.device != device or t.dtype != dtype or not t.is_contiguous() \
-            or tuple(t.shape) != tuple(shape):
+            or t.shape != tuple(shape):
         raise ValueError(
             f"{name}: need a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "

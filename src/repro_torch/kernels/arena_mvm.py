@@ -12,6 +12,14 @@ For each packed instance i and each tile t in schedule order:
 on the current stream; `kernels/ops.py` is the public entry point with the
 dtype policy and the CPU dispatch.  `arena_packed_apply.launches` counts
 the launches this process made.
+
+The kernel has two instances, chosen by `plan` from the shapes alone: `smem`
+keeps a block's arena slice and the window metadata in shared memory and
+streams the operators through a ring (the widest column slice up to 16
+whose shared memory fits, and two or three ring slots); `global`, for
+an arena too tall for shared memory even one column wide, keeps the arena
+in device memory.  A failed build or launch raises; it never picks the
+instance.
 """
 from __future__ import annotations
 
@@ -23,7 +31,50 @@ import torch
 from repro_torch.core.quantization import quantizer_step
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check as _check
-from repro_torch.kernels._launch import column_slice, launch_on, num_sms
+from repro_torch.kernels._launch import (column_slice, launch_on, num_sms,
+                                        smem_optin)
+
+_MAX_STAGES = 3         # panels in flight: 3 keep the main path fed
+_MAX_KB = 16            # widest column slice of the smem instance
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, s: int, k: int, t: int, c: int, j: int, sms: int,
+         optin: int, smem_bytes):
+    """(instance, kb, stages) of one launch, from the shapes alone: the
+    `smem` instance with the widest column slice, up to 16, that
+    `column_slice` allows and whose block fits `optin` bytes of shared
+    memory with at least two ring slots (three where they fit), else the
+    `global` instance (stages 0) at `column_slice`'s width.
+    `smem_bytes(s, t, j, c, kb, stages)` is a block's shared memory, the
+    kernel's own `arena_smem_bytes` on the card.  (On an H100 at M=128,
+    K=128, 16 columns a block ran faster than 32 or 8.)"""
+    def stages(kb):
+        for st in range(_MAX_STAGES, 1, -1):
+            if smem_bytes(s, t, j, c, kb, st) <= optin:
+                return st
+        return 0
+
+    if stages(1):
+        kb = column_slice(m, k, sms,
+                          fits=lambda kb: kb <= _MAX_KB and stages(kb) > 0)
+        return "smem", kb, stages(kb)
+    return "global", column_slice(m, k, sms), 0
+
+
+def _kernel_smem_bytes(s: int, t: int, j: int, c: int, kb: int,
+                       stages: int) -> int:
+    """A block's shared memory by the kernel's own layout
+    (`arena_smem_bytes` of the built library)."""
+    return _entry()[0].arena_smem_bytes(s, t, j, c, kb, stages)
+
+
+def device_plan(device: torch.device, m: int, s: int, k: int, t: int,
+                c: int, j: int):
+    """`plan` of a launch on `device`: its SMs, its shared memory and the
+    kernel's layout."""
+    return plan(m, s, k, t, c, j, num_sms(device), smem_optin(device),
+                _kernel_smem_bytes)
 
 
 @functools.cache
@@ -31,10 +82,12 @@ def _entry():
     """The C entry point with its argument types declared (once)."""
     lib = _build.load("arena_mvm")
     fn = lib.arena_packed_apply_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.arena_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.arena_smem_bytes.restype = ctypes.c_longlong
     lib.arena_error_string.argtypes = [ctypes.c_int]
     lib.arena_error_string.restype = ctypes.c_char_p
     return lib, fn
@@ -68,12 +121,13 @@ def arena_packed_apply(arena: torch.Tensor, ops: torch.Tensor,
         raise ValueError(f"tile ({r}, {c}) larger than the arena ({s})")
     dac_step = quantizer_step(dac_bits, fullscale) if dac_bits else 0.0
     adc_step = quantizer_step(adc_bits, fullscale) if adc_bits else 0.0
+    _, kb, stages = device_plan(dev, m, s, k, t, c, j)
     lib, fn = _entry()
     err = launch_on(dev, lambda stream: fn(
         arena.data_ptr(), ops.data_ptr(), in_offs.data_ptr(),
         in_signs.data_ptr(), out_offs.data_ptr(), out_init.data_ptr(), m, s,
-        k, t, r, c, j, column_slice(m, k, num_sms(dev)), dac_bits or 0,
-        dac_step, adc_bits or 0, adc_step, fullscale, stream))
+        k, t, r, c, j, kb, stages, dac_bits or 0, dac_step, adc_bits or 0,
+        adc_step, fullscale, stream))
     if err != 0:
         raise RuntimeError(f"arena kernel launch failed: "
                            f"{lib.arena_error_string(err).decode()}")

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// shared-memory addresses, mbarriers, the wgmma matrix descriptor of a
+// Hopper (sm_90a) building blocks shared by the kernels of this directory:
+// shared-memory addresses, mbarriers, 1-D bulk copies (TMA) and 4-byte
+// cp.async completing on an mbarrier, the wgmma matrix descriptor of a
 // 128-byte swizzled tile, and the wgmma fence / commit / wait.
 #pragma once
 
@@ -7,6 +8,15 @@
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first ALIGN-byte-aligned byte of the dynamic shared array `base`,
+// reached by an offset from the array itself: the compiler then keeps the
+// accesses through it in the shared window (LDS / STS), where a round trip
+// through an integer would leave them generic loads and stores.
+template <int ALIGN>
+__device__ __forceinline__ uint8_t* smem_align(uint8_t* base) {
+  return base + ((ALIGN - (smem_u32(base) & (ALIGN - 1))) & (ALIGN - 1));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -36,6 +46,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// 1-D bulk copy (TMA) of `bytes` global -> shared, completing as
+// transaction bytes on `bar`: addresses and size multiples of 16.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (any 4-byte-aligned address).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// One more arrival on `bar`, made when every cp.async this thread issued
+// before it has landed (the expected count is raised first, so the
+// barrier's count at init is unchanged).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle (the layout TMA

@@ -71,6 +71,67 @@ def test_arena_kernel_matches_plain_version(cuda, m, k, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n_tiles,rows,cols,k,s,bits,instance", [
+    (1, 5, 8, 8, 2, 60000, None, "global"),    # slice over shared memory
+    (1, 5, 8, 8, 2, 60000, 8, "global"),
+    (2, 40, 128, 128, 3, 600, None, "smem"),   # 80 panels through 3 slots
+    (2, 5, 256, 256, 4, 1024, None, "smem"),   # 256x256 tiles, 3 slots
+    (3, 23, 37, 33, 5, 300, None, "smem"),     # odd C: ragged copies
+    (3, 23, 37, 33, 5, 300, 8, "smem"),
+    (16, 23, 64, 64, 5, 704, 8, "smem"),       # ragged K, 8-bit
+    (128, 23, 64, 64, 128, 704, None, "smem")])   # wide: 16 columns a block
+def test_arena_kernel_instances_match_plain_version(cuda, m, n_tiles, rows,
+                                                    cols, k, s, bits,
+                                                    instance):
+    _check_arena_case(cuda, m, n_tiles, rows, cols, k, s, bits, instance)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,rows,cols,k,s,bits,skip,instance", [
+    (16, 64, 64, 8, 704, None, False, "smem"),
+    (16, 64, 64, 8, 704, 8, True, "smem"),
+    (3, 37, 33, 5, 300, None, True, "smem"),            # odd C
+    (128, 64, 64, 128, 704, None, True, "smem")])       # 16 columns
+def test_arena_kernel_takes_many_window_terms_and_skips_bad_windows(
+        cuda, m, rows, cols, k, s, bits, skip, instance):
+    """Six window terms a tile: the first four are read ahead into
+    registers, the rest from shared memory on the chain.  A window past
+    the arena (offset < 0 or > S - C), in either group, is skipped: the
+    plain version gets that term as a zero-sign pad."""
+    _check_arena_case(cuda, m, 23, rows, cols, k, s, bits, instance,
+                      n_terms=6, skip=skip)
+
+
+def _check_arena_case(cuda, m, n_tiles, rows, cols, k, s, bits, instance,
+                      n_terms=3, skip=False):
+    """One launch on the instance `plan` picks (asserted to be
+    `instance`) against the plain version."""
+    args = tile_program(m=m, n_tiles=n_tiles, rows=rows, cols=cols, k=k,
+                        s=s, n_terms=n_terms, seed=rows + cols)
+    plain_args = [x.copy() for x in args]
+    if skip:
+        in_offs, in_signs = args[2], args[3]
+        for t, j, off in [(3, 1, s - cols + 1), (5, 5, -7), (6, 4, s)]:
+            in_offs[t, j] = off
+            in_signs[t, j] = 1.0
+            plain_args[2][t, j], plain_args[3][t, j] = 0, 0.0
+    dev = [torch.from_numpy(x).to(cuda) for x in args]
+    assert arena_mvm.device_plan(cuda, m, s, k, n_tiles, cols,
+                                 n_terms)[0] == instance
+    kw = dict(dac_bits=bits, adc_bits=bits)
+    plain = ref.arena_packed_ref(
+        *[torch.from_numpy(x).to(cuda) for x in plain_args], **kw)
+    before = arena_mvm.arena_packed_apply.launches
+    out = ops.arena_packed_apply(dev[0].clone(), *dev[1:], **kw)
+    torch.cuda.synchronize()
+    assert arena_mvm.arena_packed_apply.launches == before + 1
+    if bits is None:
+        scaled_close(out.cpu(), plain.cpu(), 1e-5)
+    else:
+        quantized_close(out.cpu(), plain.cpu(), 2.0 / (2 ** bits - 1))
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_keeps_dtype_and_refuses_bad_input(cuda):
     args = [torch.from_numpy(x).to(cuda) for x in tile_program()]
     wide = ops.arena_packed_apply(args[0].double(), *args[1:])
@@ -237,7 +298,15 @@ G0 = 100e-6
     (1, 128, 128, 128, 8, torch.float32),       # L=1 stack
     (3, 5, 70, 130, 8, torch.float32),          # ragged stack
     (4, 64, 64, 64, None, torch.bfloat16),      # bf16
-    (2, 64, 96, 40, 8, torch.bfloat16)])
+    (2, 64, 96, 40, 8, torch.bfloat16),
+    (None, 70, 100, 67, 8, torch.float32),      # odd C: element staging
+    (None, 70, 100, 67, None, torch.float32),
+    (None, 512, 1024, 1024, 8, torch.float32),  # the bench's row
+    (None, 1024, 1024, 256, 8, torch.float32),  # 512 blocks
+    (2, 33, 65, 129, None, torch.float32),      # 3xTF32
+    (None, 96, 130, 200, 12, torch.float32),    # 12-bit codes: 2 products
+    (None, 96, 130, 200, 13, torch.float32),    # 13-bit: 3 products
+    (3, 40, 70, 72, 8, torch.bfloat16)])
 def test_crossbar_kernel_matches_plain_version(cuda, l, b, r, c, bits,
                                                dtype):
     gen = torch.Generator(device=cuda).manual_seed(r + c)
@@ -286,6 +355,46 @@ def test_schur_kernel_matches_plain_version(cuda, i, j, k, dtype):
     assert schur_gemm.schur_update.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (i, j)
     scaled_close(out.cpu(), ref.schur_update_ref(a4, a3, w).cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdt,gdt,bits", [
+    (torch.bfloat16, torch.float32, None),      # x exact: 2 products
+    (torch.float32, torch.bfloat16, None),      # G exact: 2 products
+    (torch.float32, torch.bfloat16, 8),         # both exact: 1 product
+    (torch.bfloat16, torch.bfloat16, None)])
+def test_crossbar_kernel_mixed_types(cuda, vdt, gdt, bits):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    v = (torch.rand((3, 100, 150), generator=gen, device=cuda) * 2 - 1
+         ).to(vdt)
+    gp, gn = ((torch.rand((3, 90, 150), generator=gen, device=cuda) * G0
+               ).to(gdt) for _ in range(2))
+    kw = dict(g0=G0, dac_bits=bits, adc_bits=bits)
+    out = crossbar_mvm.crossbar_mvm_batched(v, gp, gn, **kw)
+    torch.cuda.synchronize()
+    want = ref.crossbar_mvm_batched_ref(v, gp, gn, **kw).cpu()
+    if bits is None:
+        scaled_close(out.cpu(), want, 1e-5)
+    else:
+        one_step_close(out.cpu(), want, 2.0 / (2 ** bits - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [None, 8])
+def test_crossbar_kernel_takes_more_arrays_than_grid_z(cuda, bits):
+    """70000 tiny arrays: the grid is one-dimensional, so any L runs."""
+    gen = torch.Generator(device=cuda).manual_seed(70000)
+    v = torch.rand((70000, 2, 5), generator=gen, device=cuda) * 2 - 1
+    gp, gn = (torch.rand((70000, 3, 5), generator=gen, device=cuda) * G0
+              for _ in range(2))
+    kw = dict(g0=G0, dac_bits=bits, adc_bits=bits)
+    out = crossbar_mvm.crossbar_mvm_batched(v, gp, gn, **kw)
+    torch.cuda.synchronize()
+    want = ref.crossbar_mvm_batched_ref(v, gp, gn, **kw).cpu()
+    if bits is None:
+        scaled_close(out.cpu(), want, 1e-5)
+    else:
+        one_step_close(out.cpu(), want, 2.0 / (2 ** bits - 1))
 
 
 @pytest.mark.cuda

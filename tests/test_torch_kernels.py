@@ -92,6 +92,50 @@ def test_column_slice_fills_the_card():
         assert kb in (1, 2, 4, 8, 16, 32)
 
 
+def _arena_smem_bytes(s, t, j, c, kb, stages):
+    """`csrc/arena_mvm.cu::smem_bytes` as this test takes it: a ring of
+    `stages` 64-row panels (plus 3 floats of alignment, rounded to 32
+    floats), its mbarriers, the window metadata, the arena slice and the
+    DAC'd tile (rows padded to the c-lanes)."""
+    slot = -(-(64 * c + 3) // 32) * 32
+    v_stride = c + (32 // kb - c) % 32
+    return (128 + 4 * stages * slot + 16 * stages
+            + 4 * (2 * t * j + 2 * t) + 4 * (s * kb + kb * v_stride))
+
+
+def test_arena_plan_picks_the_instance_from_shapes():
+    """The arena kernel's instance, column slice and ring depth, from the
+    shapes alone (H100 SXM: 132 SMs, 227 KB of shared memory a block)."""
+    sxm, optin = 132, 232448
+
+    def plan(m, s, k, t_, c, j, need=_arena_smem_bytes):
+        return tarena.plan(m, s, k, t_, c, j, sxm, optin, need)
+    # (M, S, K, T, C, J): chip_smoke.py phase 3's cases, phase 5's levels
+    assert plan(16, 704, 8, 23, 64, 3) == ("smem", 1, 3)
+    assert plan(128, 704, 128, 23, 64, 3) == ("smem", 16, 3)
+    assert plan(4, 2816, 32, 23, 256, 3) == ("smem", 1, 3)
+    assert plan(1, 2816, 8, 64, 64, 3) == ("smem", 1, 3)
+    assert plan(1, 2816, 8, 1, 256, 3) == ("smem", 1, 3)
+    # an arena too tall for shared memory even one column wide
+    assert plan(1, 60000, 2, 5, 8, 3) == ("global", 1, 0)
+    assert plan(64, 60000, 64, 5, 8, 3) == \
+        ("global", column_slice(64, 64, sxm), 0)
+    for m, s, k, t_, c, j in [(16, 704, 8, 23, 64, 3), (3, 300, 37, 23, 33,
+                                                        3)]:
+        inst, kb, stages = plan(m, s, k, t_, c, j)
+        assert _arena_smem_bytes(s, t_, j, c, kb, stages) <= optin
+        assert 2 <= stages <= 3 and kb <= 16
+    # two ring slots where three do not fit; a narrower slice where a
+    # wider one does not
+    def ring(s, t_, j, c, kb, stages):
+        return 1000 * stages + 100 * kb
+    assert plan(128, 704, 128, 23, 64, 3, ring) == ("smem", 16, 3)
+    assert tarena.plan(128, 704, 128, 23, 64, 3, sxm, 2500, ring) == \
+        ("smem", 4, 2)
+    assert tarena.plan(128, 704, 128, 23, 64, 3, sxm, 2000, ring) == \
+        ("global", 32, 0)
+
+
 def test_block_thomas_column_slice_is_the_narrowest_one_wave():
     from repro_torch.kernels.banded_solve import column_slice as slice_of
     sxm, optin = 132, 232448                        # H100 SXM, 227 KB
@@ -457,6 +501,73 @@ def test_block_thomas_needs_3xtf32_on_a_real_crossbar(three):
     err = rel(torch.stack(xs, 1))
     limit = 4 * rel(tref.block_tridiag_solve_ref(minvs, rhs, gw=1.0))
     assert (err <= limit) == three, (err, limit)
+
+
+@pytest.mark.parametrize("bits", [8, 12, 13])
+def test_crossbar_dac_codes_exact_in_tf32_up_to_12_bits(bits):
+    """Every DAC code of a `bits`-wide converter survives tf32 rounding up
+    to 12 bits; at 13 bits some do not (so the kernel runs 3xTF32 on the
+    quantised values there)."""
+    from repro_torch.core.quantization import quantizer_step
+    step = np.float32(quantizer_step(bits, 1.0))
+    v = np.linspace(-1, 1, 1 << 16, dtype=np.float32)
+    q = t(np.rint(v / step).astype(np.float32))
+    assert float(q.abs().max()) <= 2 ** (bits - 1)
+    assert torch.equal(_tf32(q), q) == (bits <= txbar.CODE_BITS)
+
+
+@pytest.mark.parametrize("two", [False, True])
+def test_crossbar_needs_two_tf32_products_on_the_codes(two):
+    """`csrc/crossbar_mvm.cu` with an 8-bit DAC at the bench's (B, R, C) =
+    (512, 1024, 1024): the codes are exact in tf32, so G_hi.q + G_lo.q
+    (each product exact in float32, float32 sums) holds the pre-ADC sums
+    to 1e-5 of max|sum| against float64; one tf32 product, tf32(G).q,
+    does not."""
+    from repro_torch.core.quantization import quantizer_step
+    rng = np.random.default_rng(512)
+    v = rng.uniform(-1, 1, (512, 1024)).astype(np.float32)
+    gp, gn = (rng.uniform(0, 100e-6, (1024, 1024)).astype(np.float32)
+              for _ in range(2))
+    q = t(np.rint(v / np.float32(quantizer_step(8, 1.0))))
+    assert torch.equal(_tf32(q), q)
+    g = t(gp - gn)
+    truth = q.double() @ g.double().T
+    g_hi = _tf32(g)
+    got = q @ g_hi.T
+    if two:
+        got = q @ _tf32(g - g_hi).T + got
+    assert (float((got.double() - truth).abs().max())
+            <= 1e-5 * float(truth.abs().max())) == two
+
+
+@pytest.mark.parametrize("bits", [8, 9, 10])
+def test_crossbar_codes_take_three_bf16_products_up_to_9_bits(bits):
+    """The crossbar's bound (`chip_smoke.py::_xbar_bound`) prices an 8-bit
+    call at three bf16 products: DAC codes up to 9 bits (|q| <= 256) are
+    exact in bf16 (10 bits are not), G = gpos - gneg is exactly the sum
+    of three bf16 parts, and G_hi.q + G_mid.q + G_lo.q (each product exact
+    in float32, float32 sums) holds the pre-ADC sums to 1e-5 of max|sum|
+    against float64."""
+    from repro_torch.core.quantization import quantizer_step
+    rng = np.random.default_rng(bits)
+    v = rng.uniform(-1, 1, (64, 256)).astype(np.float32)
+    gp, gn = (rng.uniform(0, 100e-6, (256, 256)).astype(np.float32)
+              for _ in range(2))
+    q = t(np.rint(v / np.float32(quantizer_step(bits, 1.0))))
+    exact = torch.equal(q.bfloat16().float(), q)
+    assert exact == (bits <= 9)
+    if not exact:
+        return
+    g = t(gp - gn)
+    parts = []
+    for _ in range(3):
+        parts.append(g.sub(sum(parts, torch.zeros_like(g))).bfloat16()
+                     .float())
+    assert torch.equal(parts[0] + parts[1] + parts[2], g)
+    got = sum(q @ part.T for part in reversed(parts))
+    truth = q.double() @ g.double().T
+    assert float((got.double() - truth).abs().max()) <= \
+        1e-5 * float(truth.abs().max())
 
 
 def _online_attention_bf16(q, k, v, split, bk=128):
