@@ -76,6 +76,18 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      attention routes compared in bf16 (information) and, in a 2-layer
      float32 glm4-9b, the prefill logits through the kernel against the
      chunked path (2e-4 of max|logit|);
+ 13. the maintained serving path: Fig. 8's service (16 tenants x 8 rhs)
+     with retention drift (drift_nu 0.05) through three waves of the
+     maintenance cycle on a `DeviceClock` - age every plan
+     (`ProgrammedSolver.aged` at per-array `PlanAges`) and `refresh`;
+     scrub, repair the pending arrays (`repaired`) and `refresh`;
+     `flush_all`, one packed launch held to the plain path - with an aged
+     solver against a finalize at its ages and a spliced arena against a
+     fresh compile; d sum(w x)/db through the kernel path (one launch in
+     the forward) against the plain path, single and packed; a block
+     repair timed against a full re-program (n=256, 128x128 arrays,
+     write-verify, 1/8 of the arrays); `calibrate_wire` at n=16, 120
+     steps, recovering a planted 1 ohm from the nodal oracle to 5%;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -86,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from functools import partial
 import statistics
 import subprocess
 import sys
@@ -560,6 +573,199 @@ def _nodal_serving_phase(dev, n=256, tenants=4, k=8):
                      torch.from_numpy(answers[mid]), plain.cpu(),
                      SOLVE_REL_TOL)
     return banded, arena, prog
+
+
+def _host_ms(fn, reps=3, warmup=1):
+    """Median host-clock ms of `fn()` to a synchronised card."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _maintenance_phase(dev, smi, n=256, tenants=16, k=8, waves=3, dt=0.6):
+    """Phase 13: the maintained serving path - Fig. 8's service with
+    retention drift, driven through the maintenance cycle as the
+    reference's async engine drives it (`_maintenance_cycle` /
+    `_do_repairs`), synchronously; the gradient through the kernel path;
+    the cost of a block repair against a full re-program; wire
+    calibration on the nodal oracle.  Returns its launch counts by path."""
+    from repro_torch.calib import calibrate_wire
+    from repro_torch.core import blockamc
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.matrices import random_rhs, wishart
+    from repro_torch.kernels import arena_mvm, banded_solve
+    from repro_torch.serve import (DeviceClock, MaintenanceConfig,
+                                   MatrixMaintenance, SolverService)
+    # benchmarks/maint_bench.py: drift_nu 0.05, block_trip 0.02, dt 0.6;
+    # four repairs a cycle, so the arrays' ages part ways
+    cfg = AnalogConfig(array_size=64, nonideal=NonidealConfig(
+        sigma=0.05, drift_nu=0.05))
+    mcfg = MaintenanceConfig(scrub_blocks_per_cycle=16, block_trip=0.02,
+                             repair_batch=4)
+    print(f"phase 13: maintained serving, n={n} stages=2 64x64 sigma=0.05 "
+          f"drift_nu=0.05, {tenants} tenants x {k} rhs, {waves} waves of "
+          f"{dt} s; card: {smi}")
+    data = torch.Generator().manual_seed(13)
+    mats = [wishart(data, n, device=dev) for _ in range(tenants)]
+    rhs = torch.stack([torch.stack([random_rhs(data, n, device=dev)
+                                    for _ in range(k)], dim=1)
+                       for _ in range(tenants)])
+    ids = [f"aging{i}" for i in range(tenants)]
+    svc = SolverService(cfg, stages=2, device=dev)
+    for i, mid in enumerate(ids):
+        svc.program(mid, mats[i], torch.Generator().manual_seed(1300 + i))
+    clock = DeviceClock()
+    maint = {mid: MatrixMaintenance(svc.solver(mid), mcfg, clock.now())
+             for mid in ids}
+    flush_launches = probes = repaired = 0
+    t_cycle = []
+    for wave in range(waves):
+        t = clock.advance(dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, mid in enumerate(ids):
+            m = maint[mid]
+            s = svc.solver(mid)                    # 1-2: age, refresh
+            ages = m.plan_ages(s.flat, t)
+            aged = s.aged(ages)
+            svc.refresh(mid, aged)
+            m.synced_at = t
+            probes += m.scrub(aged.flat, aged.cfg, t,     # 3: scrub,
+                              mcfg.scrub_blocks_per_cycle)  # repair
+            if not m.pending:
+                continue
+            blocks = sorted(m.pending)[:mcfg.repair_batch]
+            m.repair_rounds += 1
+            rep = aged.repaired(blocks, torch.Generator().manual_seed(
+                20_000 + 100 * i + m.repair_rounds))
+            svc.refresh(mid, rep)
+            m.note_repaired(blocks, rep.flat, rep.cfg, t)
+            repaired += len(blocks)
+            if i == 0:
+                # the aged solver is a fresh finalize at the same ages;
+                # the spliced arena a fresh compile of the spliced plan at
+                # the ages it now holds (the repaired arrays fresh)
+                fin = blockamc.finalize(aged.flat, cfg, drift_t=ages)
+                _check_close(f"wave {wave}: aged solver vs finalize at its "
+                             f"ages (plain executor)",
+                             aged.solve_many(rhs[0]),
+                             blockamc.execute_finalized(fin, rhs[0]),
+                             SOLVE_REL_TOL)
+                fresh = blockamc.compile_arena(blockamc.finalize(
+                    rep.flat, cfg, drift_t=m.plan_ages(rep.flat, t)))
+                _check_close(f"wave {wave}: spliced arena program vs "
+                             f"compile_arena(finalize(spliced flat))",
+                             rep.arena.program[0], fresh.program[0],
+                             KERNEL_REL_TOL)
+        torch.cuda.synchronize()
+        t_cycle.append(time.perf_counter() - t0)
+        for mid, bs in zip(ids, rhs):              # 4: flush
+            for j in range(k):
+                svc.submit(mid, bs[:, j])
+        arena_mvm.arena_packed_apply.launches = 0
+        answers = svc.flush_all()
+        launched = arena_mvm.arena_packed_apply.launches
+        flush_launches += launched
+        if launched != 1:
+            _fail(f"wave {wave}: flush_all launched {launched} times")
+        pp = blockamc.pack_arena_plans([svc.solver(mid).arena for mid in ids])
+        _check_close(f"wave {wave}: flush_all (1 launch) vs plain path",
+                     torch.from_numpy(np.stack([answers[mid] for mid in ids])),
+                     blockamc.execute_arena_packed(pp, rhs,
+                                                   use_kernel=False).cpu(),
+                     SOLVE_REL_TOL)
+        worst = max(m.gauges(t)["worst_dev"] for m in maint.values())
+        print(f"  wave {wave} at t={t:.1f} s: maintenance cycle "
+              f"{t_cycle[-1]:.3f} s (host clock), worst probe deviation "
+              f"{worst:.4f}, {sum(len(m.pending) for m in maint.values())} "
+              f"repairs pending")
+    print(f"  {probes} probes, {repaired} arrays repaired over {waves} "
+          f"waves; {flush_launches} arena launches in {waves} flush_all")
+    if repaired == 0:
+        _fail("the drift scheduled no repair")
+
+    # the gradient through the kernel path (one launch in the forward)
+    def grads(run, b, w):
+        b = b.clone().requires_grad_()
+        (g,) = torch.autograd.grad((run(b) * w).sum(), b)
+        return g
+    wgen = torch.Generator().manual_seed(14)
+    w = torch.randn(tuple(rhs.shape), generator=wgen).to(dev)
+    ap = svc.solver(ids[0]).arena
+    pp = blockamc.pack_arena_plans([svc.solver(mid).arena for mid in ids])
+    grad_launches = 0
+    for what, run, b, ww in (
+            ("execute_arena", partial(blockamc.execute_arena, ap), rhs[0],
+             w[0]),
+            ("execute_arena_packed",
+             partial(blockamc.execute_arena_packed, pp), rhs, w)):
+        arena_mvm.arena_packed_apply.launches = 0
+        g_kernel = grads(run, b, ww)
+        launched = arena_mvm.arena_packed_apply.launches
+        grad_launches += launched
+        g_plain = grads(partial(run, use_kernel=False), b, ww)
+        if launched != 1 or arena_mvm.arena_packed_apply.launches != 1:
+            _fail(f"{what}: the gradient's forward launched {launched}")
+        _check_close(f"d sum(w x)/db through {what}'s kernel path (1 "
+                     f"launch) vs plain path", g_kernel, g_plain,
+                     SOLVE_REL_TOL)
+
+    # the repair's cost: benchmarks/maint_bench.py repair_cost's config
+    wv = AnalogConfig(array_size=n // 2, nonideal=NonidealConfig(
+        sigma=0.02, r_wire=1.0, wire_model="first_order",
+        compensate_wire=True, wv_iters=3))
+    a = wishart(torch.Generator().manual_seed(7), n, device=dev)
+    solver = blockamc.ProgrammedSolver.program(
+        a, torch.Generator().manual_seed(1), wv, 2, device=dev)
+    refs = [r.ref for r in solver.block_map()]
+    k_rep = max(1, int(round(len(refs) / 8)))
+    subset = refs[::max(1, len(refs) // k_rep)][:k_rep]
+    program_ms = _host_ms(lambda: blockamc.ProgrammedSolver.program(
+        a, torch.Generator().manual_seed(2), wv, 2, device=dev))
+    repair_ms = _host_ms(lambda: solver.repaired(
+        subset, torch.Generator().manual_seed(2)))
+    print(f"  repair of {k_rep} of {len(refs)} arrays (n={n}, 128x128, "
+          f"write-verify, wv_iters=3): {repair_ms:.3f} ms against a full "
+          f"re-program's {program_ms:.3f} ms ({program_ms / repair_ms:.2f}x;"
+          f" host clock, median of 3; card: {smi})")
+
+    # wire calibration: benchmarks/grad_bench.py's n=16, 120 steps
+    cg = torch.Generator().manual_seed(9)
+    a = torch.randn(16, 16, generator=cg)
+    a = (a @ a.T + 16 * torch.eye(16)).to(dev)
+    banded_solve.block_tridiag_solve.launches = 0
+    arena_mvm.arena_packed_apply.launches = 0
+    t0 = time.perf_counter()
+    cal = calibrate_wire(a, r_true=1.0, steps=120, device=dev)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    calib_banded = banded_solve.block_tridiag_solve.launches
+    calib_arena = arena_mvm.arena_packed_apply.launches
+    print(f"  calibrate_wire n=16, 120 steps: r_hat {cal.r_hat:.5f} ohm "
+          f"(planted 1, error {cal.rel_err(1.0):.3%}, limit 5%), loss "
+          f"{cal.history[0]:.3e} -> {cal.loss:.3e}; {calib_banded} "
+          f"block-Thomas launches (the nodal oracle), {calib_arena} arena "
+          f"launches; {t_cal:.2f} s wall (card: {smi})")
+    if not cal.rel_err(1.0) < 0.05:
+        _fail(f"calibration recovered {cal.r_hat} ohm, planted 1")
+    if calib_banded == 0 or calib_arena != 121:
+        _fail(f"calibration launched {calib_banded} block-Thomas and "
+              f"{calib_arena} arena kernels (expected 121: the oracle and "
+              f"one a step)")
+    return {"maintained flush_all (phase 13)": flush_launches,
+            "kernel-path gradients (phase 13)": grad_launches,
+            "calibrate_wire forwards (phase 13)": calib_arena,
+            "calibrate_wire nodal oracle (phase 13)": calib_banded,
+            "repair_ms": repair_ms, "program_ms": program_ms,
+            "calibration_s": t_cal, "r_hat": cal.r_hat}
 
 
 def _xbar_bound(l, b, r, c, bits):
@@ -1469,6 +1675,11 @@ def main() -> int:
     lm_launches, lm_stats = _lm_phase(dev)
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 13. the maintained serving path -------------------------------------
+    t0 = time.perf_counter()
+    maint = _maintenance_phase(dev, smi)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -1492,7 +1703,13 @@ def main() -> int:
                              "per-level (n=1024)": level_launches,
                              "nodal serving (flush_all)": serve_arena,
                              "example path (phase 10)":
-                                 example_launches["arena_packed_apply"]},
+                                 example_launches["arena_packed_apply"],
+                             **{path: maint[path] for path in (
+                                 "maintained flush_all (phase 13)",
+                                 "kernel-path gradients (phase 13)",
+                                 "calibrate_wire forwards (phase 13)")}},
+        "maintenance": {key: maint[key] for key in (
+            "repair_ms", "program_ms", "calibration_s", "r_hat")},
     }]
     solver = banded_stats["solver path"]
     kernels.append({
@@ -1500,7 +1717,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/banded_solve.cu",
         "replaces": "src/repro/kernels/banded_solve.py:82",
-        "launches": fig9_launches + serve_banded,
+        "launches": fig9_launches + serve_banded
+        + maint["calibrate_wire nodal oracle (phase 13)"],
         "max_abs_err": solver["err"],
         "ms": solver["ms"],
         "plain_ms": solver["plain_ms"],
@@ -1508,7 +1726,10 @@ def main() -> int:
         "bound_by": solver["bound_by"],
         "library_ms": None,
         "launches_by_path": {"Fig. 9 Monte-Carlo (phase 7)": fig9_launches,
-                             "nodal serving (phase 8)": serve_banded},
+                             "nodal serving (phase 8)": serve_banded,
+                             "calibrate_wire nodal oracle (phase 13)":
+                                 maint["calibrate_wire nodal oracle "
+                                       "(phase 13)"]},
         "shapes": {label: {key: st[key] for key in
                            ("err", "ms", "plain_ms", "bound_ms", "bound_by")}
                    for label, st in banded_stats.items()

@@ -104,25 +104,41 @@ def map_matrix(a_block: torch.Tensor, generator: Generators,
     order).  A sequence of generators gives an (S, r, c) pair.
     `use_kernel` is `nonideal.write_verified`'s.
     """
+    single = isinstance(generator, torch.Generator)
+    gens = [generator] if single else list(generator)
+    dtype = torch.result_type(a_block, scale)
+    draws = [pair_draws(a_block.shape, gen, cfg.nonideal, dtype)
+             for gen in gens]
+    pair = map_matrix_drawn(a_block, draws, cfg, scale, use_kernel)
+    if single:
+        pair = CrossbarPair(pair.gpos[0], pair.gneg[0], scale, cfg.g0)
+    return pair
+
+
+def pair_draws(shape, generator: torch.Generator, ni, dtype):
+    """The random numbers of one programmed pair from `generator`: the
+    positive array's `nonideal.device_draws`, then the negative one's."""
+    return [nonideal.device_draws(shape, generator, ni, dtype)
+            for _ in range(2)]
+
+
+def map_matrix_drawn(a_block: torch.Tensor, draws, cfg: AnalogConfig,
+                     scale: torch.Tensor, use_kernel=None) -> CrossbarPair:
+    """`map_matrix` from draws made already: `draws` holds one
+    `pair_draws` per simulation, and the pair is (S, r, c)."""
     ni = cfg.nonideal
     a_norm = a_block * scale
     targets = torch.stack([torch.clamp_min(a_norm, 0.0) * cfg.g0,
                            torch.clamp_min(-a_norm, 0.0) * cfg.g0])
     written = nonideal.write_verified(targets, ni, use_kernel)
-    single = isinstance(generator, torch.Generator)
-    gens = [generator] if single else list(generator)
-    draws = [nonideal.device_draws(targets.shape[1:], gen, ni,
-                                   targets.dtype)
-             for gen in gens for _ in range(2)]     # positive, negative
-    lead = (len(gens),) + tuple(targets.shape)
+    lead = (len(draws),) + tuple(targets.shape)
     normal, uniform = (None if parts[0] is None
                        else torch.stack(parts).reshape(lead)
-                       for parts in zip(*draws))
+                       for parts in zip(*(d for pair in draws
+                                          for d in pair)))
     g = nonideal.apply_device_draws(written.expand(lead),
                                     targets.expand(lead), normal, uniform,
                                     ni, cfg.g0)
-    if single:
-        g = g[0]
     return CrossbarPair(g[..., 0, :, :], g[..., 1, :, :], scale, cfg.g0)
 
 

@@ -52,8 +52,29 @@ Differences from the reference, by design:
     out: the packed path's tenants, the Monte-Carlo drivers' simulations
     (where the reference vmaps over keys).  The packed programming
     functions loop over instances.
-  * Not ported yet: the `_cascade` custom VJP, per-array ages (`PlanAges`),
-    `aged`/`repaired` and block repair, the sharded solve functions.
+  * Block repair (`repair_blocks`) re-draws the named arrays' noise from
+    one generator by replaying the whole programming order: it walks
+    every array of the plan in the lexicographic order of its
+    `BlockRecord.path` - which is the programming order above (inv1's
+    subtree, A2's tiles, A3's tiles, inv4s's subtree), not the block
+    map's own compile-emission order - draws each array pair's noise
+    (`analog.pair_draws`; the shapes do not depend on the data, and
+    write-verify draws nothing) and keeps the draws of the named arrays
+    only.  So repairing every block under a generator seeded s gives
+    exactly what `ProgrammedSolver.program` under seed s gives, and a
+    subset gets exactly that full re-program's slices.  (The reference
+    derives each array's key from its path instead, `_path_key`, which
+    torch cannot replay.)
+  * The differentiable cascade (`_Cascade`, the reference's `_cascade`
+    custom VJP) is a `torch.autograd.Function`.  Its backward is the
+    reference's reverse sweep over the same operator stacks, in plain
+    torch: a rhs gradient reads no register (each tile's input adjoint is
+    ops^T @ cot), so on the card the forward stays on the arena kernel;
+    a stack gradient needs each tile's input window, which the kernel's
+    arena does not keep (it reuses slots), so the backward recomputes the
+    registers on the plain levels.  The kernel wrappers take no tensor
+    that requires grad: the kernels run outside autograd.
+  * Not ported yet: the sharded solve functions.
 """
 from __future__ import annotations
 
@@ -395,6 +416,13 @@ def _first_pair(p: Plan) -> CrossbarPair:
     return p.pair if isinstance(p, LeafInvPlan) else _first_pair(p.inv1)
 
 
+def build_flat_plan(a: torch.Tensor, generator: Generators,
+                    cfg: AnalogConfig,
+                    stages: Optional[int] = None) -> FlatPlan:
+    """Convenience: build_plan + compile_plan."""
+    return compile_plan(build_plan(a, generator, cfg, stages))
+
+
 def _inv_operators(grid: TileGrid, cfg: AnalogConfig, r_wire=None,
                    drift_t=None, use_kernel=None) -> torch.Tensor:
     """The (..., num, s, s) matrices one INV bucket's circuits solve with:
@@ -493,6 +521,52 @@ def _finalize_mvm_level(fplan: FlatPlan, rows, cfg: AnalogConfig,
                      tuple(row_refs))
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanAges:
+    """Per-physical-array device ages of one FlatPlan (simulated clock).
+
+    `inv[b]` / `mvm[b]` is bucket b's age: a scalar, or a (num,) vector
+    giving each array of the bucket its own age.  Ages are in the drift
+    model's t0 = 1 s units; like the `r_wire` override they are array
+    contents and never enter `plan_signature`.
+    """
+    inv: tuple
+    mvm: tuple
+
+
+def uniform_ages(fplan: FlatPlan, t) -> PlanAges:
+    """PlanAges giving every array of `fplan` the same age `t`."""
+    dev = fplan.scale.device
+
+    def ages(stacks):
+        return tuple(torch.full((g.shape[-3],), float(t),
+                                dtype=torch.float32, device=dev)
+                     for g in stacks)
+    return PlanAges(ages(fplan.inv_stacks), ages(fplan.mvm_stacks))
+
+
+def _split_ages(fplan: FlatPlan, drift_t):
+    """Normalise a finalize `drift_t` argument to per-bucket age tuples."""
+    if drift_t is None:
+        return None, None
+    if isinstance(drift_t, PlanAges):
+        return drift_t.inv, drift_t.mvm
+    return ((drift_t,) * len(fplan.inv_stacks),
+            (drift_t,) * len(fplan.mvm_stacks))
+
+
+def _ages_at(ages, b, sel=None):
+    """Bucket b's age (None when no ages were given), restricted to the
+    arrays `sel` when it is a vector."""
+    if ages is None:
+        return None
+    age = ages[b]
+    vec = torch.as_tensor(age)
+    if sel is None or vec.ndim == 0:
+        return age
+    return vec[sel.to(vec.device)]
+
+
 def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
              drift_t=None, use_kernel: Optional[bool] = None
              ) -> FinalizedPlan:
@@ -503,19 +577,25 @@ def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
     under `wire_model="nodal"`).  The plan's stacks may carry a leading
     Monte-Carlo axis (`program_system` with a sequence of generators); the
     finalized operators then carry it too.  `r_wire` optionally overrides
-    the config wire resistance (first-order model); `drift_t` optionally
-    overrides the config device age with one scalar age for the whole plan.
+    the config wire resistance (first-order model; differentiable, the
+    calibration hook of `repro_torch.calib`).  `drift_t` optionally
+    overrides the config device age: a scalar ages the whole plan, a
+    `PlanAges` each array on its own (a bucket's (num,) vector lines up
+    with the stack's array axis, behind any Monte-Carlo axis).
     `use_kernel=False` runs the nodal readouts' sweeps in their plain
     version on the card (None: the kernel for CUDA tensors).
     """
+    inv_ages, mvm_ages = _split_ages(fplan, drift_t)
     lu_stacks = tuple(
         tuple(torch.linalg.lu_factor(
-            _inv_operators(g, cfg, r_wire=r_wire, drift_t=drift_t,
+            _inv_operators(g, cfg, r_wire=r_wire,
+                           drift_t=_ages_at(inv_ages, b),
                            use_kernel=use_kernel)))
-        for g in fplan.inv_stacks)
-    mvm_eff = tuple(g.a_eff(cfg, r_wire=r_wire, drift_t=drift_t,
+        for b, g in enumerate(fplan.inv_stacks))
+    mvm_eff = tuple(g.a_eff(cfg, r_wire=r_wire,
+                            drift_t=_ages_at(mvm_ages, b),
                             use_kernel=use_kernel)
-                    for g in fplan.mvm_stacks)
+                    for b, g in enumerate(fplan.mvm_stacks))
     mvm_levels = []
     schedule = []
     for instr in fplan.schedule:
@@ -924,12 +1004,148 @@ def _apply_level_plain(vals, stacks, level):
     vals[m_out] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
 
 
-def _cascade(levels, out_spec, stacks, b_in):
-    """The plain cascade: levels in schedule order, output via `out_spec`."""
+def _run_levels(levels, stacks, b_in):
+    """Every level on the plain path; returns the registers (slot-SSA)."""
     vals = {0: b_in}
     for level in levels:
         _apply_level_plain(vals, stacks, level)
-    return _slot_gather(vals, out_spec)
+    return vals
+
+
+# ---------------------------------------------------------------------------
+# The differentiable cascade (the reference's `_cascade` custom VJP)
+#
+# The whole cascade, input register to output gather, is one autograd
+# operation over (b_in, *stacks); the static metadata (levels, out_spec)
+# rides along.  Its forward is the plain level loop or the arena kernel;
+# its backward is one reverse sweep over the same operator stacks: each
+# tile's input adjoint ops^T @ cot is scattered back through the signed
+# windows, and each tile's stack cotangent is cot @ gather^T.  Registers
+# and operators are (..., rows, cols) with any leading instance axes, so
+# one sweep serves the single and the packed executors.
+# ---------------------------------------------------------------------------
+
+def _scatter_ct(cot, lengths, segments, u):
+    """Adjoint of `_slot_gather`: scatter-add the cotangent `u` back
+    through the signed windows into `cot` (register -> cotangent)."""
+    for dst, seg_len, terms in segments:
+        piece = u[..., dst:dst + seg_len, :]
+        for m, off, sign in terms:
+            prev = cot.get(m)
+            if prev is None:
+                prev = cot[m] = u.new_zeros(u.shape[:-2]
+                                            + (lengths[m], u.shape[-1]))
+            if sign < 0:
+                prev[..., off:off + seg_len, :] -= piece
+            else:
+                prev[..., off:off + seg_len, :] += piece
+
+
+def _cascade_backward(levels, out_spec, stacks, b_in, vals, g, need_w):
+    """The reverse sweep: returns (b_in's cotangent, one cotangent per
+    stack, None where `need_w` is False).  `vals` (the forward's
+    registers) is read only for the stack cotangents."""
+    lengths = {0: b_in.shape[-2]}
+    for level in levels:
+        lengths[level[0][2]] = sum(stacks[t[0]].shape[-2]
+                                   for t in level if t[4])
+    bars = [None] * len(stacks)
+    cot = {}                                 # register -> cotangent
+    _scatter_ct(cot, lengths, out_spec, g)
+
+    def add_bar(sid, idx, wbar):
+        s = stacks[sid]
+        if bars[sid] is None:
+            bars[sid] = torch.zeros_like(s)
+        wbar = wbar.to(s.dtype).sum_to_size(
+            s.shape[:-3] + wbar.shape[-3:])
+        bars[sid][..., list(idx), :, :] += wbar
+
+    for level in reversed(levels):
+        c = cot.pop(level[0][2], None)       # this level's output cotangent
+        if c is None:
+            continue                         # an unread register
+        if len(level) > 1 and len({t[0] for t in level}) == 1:
+            # mirror the forward's shared-stack batched matmul
+            sid, idxs = level[0][0], tuple(t[1] for t in level)
+            rows = stacks[sid].shape[-2]
+            cps = torch.stack([c[..., t[3]:t[3] + rows, :] for t in level],
+                              dim=-3)
+            lo = idxs[0]
+            ops_sel = (stacks[sid][..., lo:lo + len(idxs), :, :]
+                       if idxs == tuple(range(lo, lo + len(idxs)))
+                       else stacks[sid][..., list(idxs), :, :])
+            ubars = ops_sel.transpose(-1, -2) @ cps     # (..., L, cols, k)
+            if need_w[sid]:
+                gathers = torch.stack([_slot_gather(vals, t[5])
+                                       for t in level], dim=-3)
+                add_bar(sid, idxs, cps @ gathers.transpose(-1, -2))
+            for pos, t in enumerate(level):
+                _scatter_ct(cot, lengths, t[5], ubars[..., pos, :, :])
+        else:
+            for sid, idx, _, out_local, _, segments in level:
+                op = stacks[sid][..., idx, :, :]
+                cp = c[..., out_local:out_local + op.shape[-2], :]
+                if need_w[sid]:
+                    gat = _slot_gather(vals, segments)
+                    add_bar(sid, (idx,),
+                            (cp @ gat.transpose(-1, -2)).unsqueeze(-3))
+                _scatter_ct(cot, lengths, segments,
+                            op.transpose(-1, -2) @ cp)
+    b_bar = cot.get(0)
+    if b_bar is None:
+        b_bar = torch.zeros_like(b_in)
+    return b_bar.sum_to_size(b_in.shape), bars
+
+
+class _Cascade(torch.autograd.Function):
+    """The arena cascade as one differentiable operation.
+
+    forward(levels, out_spec, kernel, b_in, *stacks): `kernel` is None
+    for the plain level loop, else a function of b_in that runs the arena
+    kernel on detached tensors.  The backward reads the forward's
+    registers only for a stack gradient: the plain forward keeps them,
+    and after the kernel's forward they are recomputed on the plain
+    levels (the kernel's arena reuses its slots).
+    """
+
+    @staticmethod
+    def forward(ctx, levels, out_spec, kernel, b_in, *stacks):
+        need_w = ctx.needs_input_grad[4:]
+        if kernel is None:
+            vals = _run_levels(levels, stacks, b_in)
+            out = _slot_gather(vals, out_spec)
+        else:
+            vals, out = None, kernel(b_in)
+        ctx.levels, ctx.out_spec = levels, out_spec
+        ctx.vals = vals if any(need_w) else None
+        ctx.save_for_backward(b_in, *stacks)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        b_in, *stacks = ctx.saved_tensors
+        need_w = ctx.needs_input_grad[4:]
+        vals = ctx.vals
+        if any(need_w) and vals is None:
+            vals = _run_levels(ctx.levels, stacks, b_in)
+        b_bar, bars = _cascade_backward(ctx.levels, ctx.out_spec, stacks,
+                                        b_in, vals, g, need_w)
+        return (None, None, None,
+                b_bar if ctx.needs_input_grad[3] else None, *bars)
+
+
+def _cascade(levels, out_spec, stacks, b_in, kernel=None):
+    """The cascade, differentiable in b_in and the stacks: through
+    `_Cascade` when autograd records and an input requires grad, else
+    straight (`kernel` as in `_Cascade`)."""
+    if torch.is_grad_enabled() and (
+            b_in.requires_grad or any(s.requires_grad for s in stacks)):
+        return _Cascade.apply(levels, out_spec, kernel, b_in, *stacks)
+    if kernel is not None:
+        return kernel(b_in)
+    return _slot_gather(_run_levels(levels, stacks, b_in), out_spec)
 
 
 def _apply_level_kernel(arena, ap, level):
@@ -951,7 +1167,7 @@ def _apply_level_kernel(arena, ap, level):
         idx = torch.tensor([t[1] for t in tiles], dtype=torch.long,
                            device=ap.stacks[sid].device)
         arena = kops.arena_level_apply(
-            arena, ap.stacks[sid].index_select(0, idx),
+            arena, ap.stacks[sid].detach().index_select(0, idx),
             torch.tensor(offs, dtype=torch.int32, device=dev),
             torch.tensor(signs, dtype=torch.float32, device=dev),
             torch.tensor([so[t[2]] + t[3] for t in tiles],
@@ -984,20 +1200,23 @@ def execute_arena(ap: ArenaPlan, b: torch.Tensor,
     dtype = torch.promote_types(b.dtype, ap.scale.dtype)
     bk = b[:, None] if single else b
     b_in = analog.dac(bk, cfg).to(dtype)
-    if use_kernel:
+
+    def kernel(b_in):
         from repro_torch.kernels import ops as kops
-        arena = torch.zeros((ap.arena_size, bk.shape[1]), dtype=dtype,
-                            device=b.device)
-        arena[ap.in_off:ap.in_off + ap.n] = b_in
+        arena = torch.zeros((ap.arena_size, b_in.shape[1]), dtype=dtype,
+                            device=b_in.device)
+        arena[ap.in_off:ap.in_off + ap.n] = b_in.detach()
         if ap.program is not None:
-            arena = kops.arena_level_apply(arena, *ap.program)
+            arena = kops.arena_level_apply(
+                arena, *(x.detach() for x in ap.program))
         else:
             for level in ap.levels:
                 arena = _apply_level_kernel(arena, ap, level)
-        out = _slot_gather({0: arena},
-                           _arena_out_spec(ap.out_spec, ap.slot_offsets))
-    else:
-        out = _cascade(ap.levels, ap.out_spec, ap.stacks, b_in)
+        return _slot_gather({0: arena},
+                            _arena_out_spec(ap.out_spec, ap.slot_offsets))
+
+    out = _cascade(ap.levels, ap.out_spec, ap.stacks, b_in,
+                   kernel if use_kernel else None)
     if single:
         out = out[:, 0]
     return -ap.scale * analog.adc(out, cfg)
@@ -1014,6 +1233,317 @@ def pad_rhs_pow2(bs: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 
 # ---------------------------------------------------------------------------
+# Block-level repair
+#
+# `plan_block_map` enumerates every physical array of a plan - (kind,
+# bucket, index) exactly as `compile_plan` interns them - with its path in
+# the partition tree.  `repair_blocks` re-programs only the named arrays
+# (the whole conductance pipeline, write-verify included; the draw design
+# is in the module docstring) and splices them into the FlatPlan stacks;
+# `splice_finalized` / `splice_arena` recompute exactly the affected
+# slices with the expressions `finalize` / `compile_arena` use.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BlockRecord:
+    """One physical array of a plan: its stack slot and its path.
+
+    `kind`/`bucket`/`index` address the array in FlatPlan.inv_stacks /
+    mvm_stacks; `path` is its place in the partition tree, a sequence of
+    ("split", 4, idx) steps (idx 0-3: inv1, A2, A3, inv4s) and a final
+    ("tile", num, idx) for a tile of A2 or A3 (row-major) - the
+    reference's key-derivation path, and here the programming order.
+    """
+    kind: str          # "inv" | "mvm"
+    bucket: int
+    index: int
+    depth: int
+    shape: Tuple[int, int]
+    path: tuple
+
+    @property
+    def ref(self) -> Tuple[str, int, int]:
+        return (self.kind, self.bucket, self.index)
+
+
+def plan_block_map(n: int, stages: Optional[int],
+                   cfg: AnalogConfig) -> Tuple[BlockRecord, ...]:
+    """Every physical array of a (n, stages, cfg) plan, in `compile_plan`'s
+    emission order (inv1 subtree, A3 tiles, inv4s subtree, A2 tiles), so
+    buckets and indices match the FlatPlan's.  Pure Python."""
+    if stages is None:
+        stages = required_stages(n, cfg.array_size)
+    s = cfg.array_size
+    inv_buckets: dict = {}
+    mvm_buckets: dict = {}
+    records = []
+
+    def ref(buckets, key):
+        if key not in buckets:
+            buckets[key] = [len(buckets), 0]
+        b = buckets[key]
+        out = (b[0], b[1])
+        b[1] += 1
+        return out
+
+    def tiles(shape, depth, path):
+        rows, cols = shape
+        r_t, c_t = -(-rows // s), -(-cols // s)
+        for ri in range(r_t):
+            for ci in range(c_t):
+                tshape = (min((ri + 1) * s, rows) - ri * s,
+                          min((ci + 1) * s, cols) - ci * s)
+                b, i = ref(mvm_buckets, (depth, tshape))
+                records.append(BlockRecord(
+                    "mvm", b, i, depth, tshape,
+                    path + (("tile", r_t * c_t, ri * c_t + ci),)))
+
+    def walk(tree, depth, path):
+        if isinstance(tree, int):
+            b, i = ref(inv_buckets, (depth, (tree, tree)))
+            records.append(BlockRecord(
+                "inv", b, i, depth, (tree, tree), path))
+            return
+        left, right = tree
+        m = _tree_size(left)
+        nn = m + _tree_size(right)
+        walk(left, depth + 1, path + (("split", 4, 0),))
+        tiles((nn - m, m), depth, path + (("split", 4, 2),))   # A3
+        walk(right, depth + 1, path + (("split", 4, 3),))
+        tiles((m, nn - m), depth, path + (("split", 4, 1),))   # A2
+
+    walk(_split_tree(n, stages), 0, ())
+    return tuple(records)
+
+
+def _target_block(root: Target, path, array_size: int) -> torch.Tensor:
+    """The digital target block a BlockRecord's array is programmed from."""
+    t = root
+    for kind, _, idx in path:
+        if kind == "split":
+            t = (t.inv1, t.a2, t.a3, t.inv4s)[idx]
+        else:
+            rows, cols = t.shape
+            c_t = -(-cols // array_size)
+            ri, ci = idx // c_t, idx % c_t
+            t = t[ri * array_size:min((ri + 1) * array_size, rows),
+                  ci * array_size:min((ci + 1) * array_size, cols)]
+    return t.a if isinstance(t, LeafTarget) else t
+
+
+def _split_changed(changed):
+    """Group a changed-block set into per-bucket sorted index lists."""
+    inv: dict = {}
+    mvm: dict = {}
+    for kind, b, i in changed:
+        (inv if kind == "inv" else mvm).setdefault(b, set()).add(i)
+    return ({b: sorted(s) for b, s in inv.items()},
+            {b: sorted(s) for b, s in mvm.items()})
+
+
+def _with_rows(t: torch.Tensor, idxs, rows) -> torch.Tensor:
+    """A copy of `t` with entries `idxs` of its array axis (-3) replaced
+    by the (len(idxs), r, c) stack `rows`."""
+    out = t.clone()
+    out[..., list(idxs), :, :] = rows
+    return out
+
+
+def repair_blocks(fplan: FlatPlan, parts: PartitionedSystem,
+                  cfg: AnalogConfig, blocks, generator: torch.Generator,
+                  stages: Optional[int] = None):
+    """Re-program only the named physical arrays of a programmed plan.
+
+    `blocks` is an iterable of ("inv"|"mvm", bucket, index) refs.  Each
+    named array is re-derived from its digital target block and
+    programmed through the whole pipeline (write-verify, variation,
+    faults) from the draws a full re-program under `generator` would give
+    it (module docstring).  Returns (new FlatPlan, frozenset of changed
+    refs); untouched slices are the original arrays, bit for bit.
+    """
+    recs = plan_block_map(fplan.n, stages, cfg)
+    if len(recs) != fplan.num_arrays:
+        raise ValueError(
+            f"block map has {len(recs)} arrays but the plan holds "
+            f"{fplan.num_arrays}: wrong stages for this plan?")
+    by_ref = {r.ref: r for r in recs}
+    changed = frozenset((k, int(b), int(i)) for k, b, i in blocks)
+    for blk in changed:
+        if blk not in by_ref:
+            raise KeyError(f"no such block in this plan: {blk}")
+    new_pairs: dict = {}
+    for rec in sorted(recs, key=lambda r: r.path):   # programming order
+        a_blk = _target_block(parts.root, rec.path, cfg.array_size)
+        draws = analog.pair_draws(rec.shape, generator, cfg.nonideal,
+                                  torch.result_type(a_blk, parts.scale))
+        if rec.ref in changed:
+            new_pairs[rec.ref] = analog.map_matrix_drawn(
+                a_blk, [draws], cfg, parts.scale)
+    changed_inv, changed_mvm = _split_changed(changed)
+
+    def splice(stacks, per_bucket, kind):
+        out = list(stacks)
+        for b, idxs in per_bucket.items():
+            g = out[b]
+            pairs = [new_pairs[(kind, b, i)] for i in idxs]
+            out[b] = TileGrid(
+                _with_rows(g.gpos, idxs, torch.cat([p.gpos for p in pairs])),
+                _with_rows(g.gneg, idxs, torch.cat([p.gneg for p in pairs])),
+                g.scale, g.g0)
+        return tuple(out)
+
+    return (dataclasses.replace(
+        fplan, inv_stacks=splice(fplan.inv_stacks, changed_inv, "inv"),
+        mvm_stacks=splice(fplan.mvm_stacks, changed_mvm, "mvm")), changed)
+
+
+def _mvm_level_layout(fplan: FlatPlan):
+    """Replay `_finalize_mvm_level`'s shape grouping: per "mvm" schedule
+    level, its rows as tuples of (bucket, index, group, pos) - a tile's
+    FlatPlan slot and its place in the finalized level."""
+    layouts = []
+    for instr in fplan.schedule:
+        if instr[0] != "mvm":
+            continue
+        groups: dict = {}
+        counts: list = []
+        row_tiles = []
+        for row in instr[1]:
+            rt = []
+            for bk, i in row:
+                shape = fplan.mvm_stacks[bk].shape[-2:]
+                if shape not in groups:
+                    groups[shape] = len(counts)
+                    counts.append(0)
+                g = groups[shape]
+                rt.append((bk, i, g, counts[g]))
+                counts[g] += 1
+            row_tiles.append(tuple(rt))
+        layouts.append(tuple(row_tiles))
+    return tuple(layouts)
+
+
+def splice_finalized(fin: FinalizedPlan, fplan: FlatPlan, changed,
+                     r_wire=None, drift_t=None) -> FinalizedPlan:
+    """Propagate repaired FlatPlan slices into a FinalizedPlan.
+
+    Recomputes, with `finalize`'s expressions, the changed INV arrays'
+    operators and LU factors (batched over the changed subset), the
+    changed MVM tiles' operators (one readout per bucket's changed
+    subset) and the divisors of every tile-row holding a changed tile;
+    everything else is carried over.  `drift_t` gives the recomputed
+    slices' ages (`finalize`'s; None: the config's age, fresh).
+    """
+    cfg = fin.cfg
+    inv_ages, mvm_ages = _split_ages(fplan, drift_t)
+    changed_inv, changed_mvm = _split_changed(changed)
+    lu_stacks = list(fin.lu_stacks)
+    for b, idxs in changed_inv.items():
+        grid = fplan.inv_stacks[b]
+        sel = torch.tensor(idxs, device=grid.gpos.device)
+        sub = TileGrid(grid.gpos[..., sel, :, :], grid.gneg[..., sel, :, :],
+                       grid.scale, grid.g0)
+        lu_s, piv_s = torch.linalg.lu_factor(_inv_operators(
+            sub, cfg, r_wire=r_wire, drift_t=_ages_at(inv_ages, b, sel)))
+        lu, piv = lu_stacks[b]
+        piv = piv.clone()
+        piv[..., idxs, :] = piv_s
+        lu_stacks[b] = (_with_rows(lu, idxs, lu_s), piv)
+
+    eff = {}                                 # changed (bucket, index) -> op
+    for b, idxs in changed_mvm.items():
+        grid = fplan.mvm_stacks[b]
+        sel = torch.tensor(idxs, device=grid.gpos.device)
+        sub = TileGrid(grid.gpos[..., sel, :, :], grid.gneg[..., sel, :, :],
+                       grid.scale, grid.g0)
+        ops = sub.a_eff(cfg, r_wire=r_wire, drift_t=_ages_at(mvm_ages, b, sel))
+        for pos, i in enumerate(idxs):
+            eff[(b, i)] = ops[..., pos, :, :]
+    mvm_levels = list(fin.mvm_levels)
+    for li, row_tiles in enumerate(_mvm_level_layout(fplan)):
+        lvl = mvm_levels[li]
+        new_stacks = list(lvl.stacks)
+        new_divs = list(lvl.divs)
+        touched = False
+        for r_idx, rt in enumerate(row_tiles):
+            if not any((bk, i) in eff for bk, i, _, _ in rt):
+                continue
+            touched = True
+            load = cfg.g0
+            for bk, i, g, pos in rt:
+                pair = fplan.mvm_stacks[bk].tile(i)
+                if (bk, i) in eff:
+                    new_stacks[g] = _with_rows(new_stacks[g], [pos],
+                                               eff[(bk, i)].unsqueeze(-3))
+                load = load + torch.sum(pair.gpos + pair.gneg, dim=-1)
+            if new_divs:
+                new_divs[r_idx] = 1.0 + load / (cfg.opa_gain * cfg.g0)
+        if touched:
+            mvm_levels[li] = dataclasses.replace(
+                lvl, stacks=tuple(new_stacks), divs=tuple(new_divs))
+    return dataclasses.replace(fin, lu_stacks=tuple(lu_stacks),
+                               mvm_levels=tuple(mvm_levels))
+
+
+def splice_arena(ap: ArenaPlan, fin: FinalizedPlan, fplan: FlatPlan,
+                 changed) -> ArenaPlan:
+    """Propagate a spliced FinalizedPlan (`splice_finalized`'s result)
+    into an ArenaPlan: the changed INV arrays' explicit inverses, the
+    changed MVM tiles and every tile sharing a row with one (their common
+    divisor is folded in), and the uniform program's operators at those
+    tiles - `compile_arena`'s expressions, slice by slice."""
+    changed_inv, changed_mvm = _split_changed(changed)
+    changed_set = {(b, i) for b, idxs in changed_mvm.items() for i in idxs}
+    stacks = list(ap.stacks)
+    updated = set()
+    for b, idxs in changed_inv.items():
+        lu, piv = fin.lu_stacks[b]
+        lu_s, piv_s = lu[..., idxs, :, :], piv[..., idxs, :]
+        eye = torch.eye(lu.shape[-1], dtype=lu.dtype, device=lu.device)
+        stacks[b] = _with_rows(
+            stacks[b], idxs,
+            -torch.linalg.lu_solve(lu_s, piv_s, eye.expand(lu_s.shape)))
+        updated.update((b, i) for i in idxs)
+
+    sid_of = {}
+    next_id = len(fin.lu_stacks)
+    for li, lvl in enumerate(fin.mvm_levels):
+        for g in range(len(lvl.stacks)):
+            sid_of[(li, g)] = next_id
+            next_id += 1
+    for li, row_tiles in enumerate(_mvm_level_layout(fplan)):
+        lvl = fin.mvm_levels[li]
+        divs = lvl.divs if lvl.divs else (None,) * len(row_tiles)
+        for r_idx, rt in enumerate(row_tiles):
+            if not any((bk, i) in changed_set for bk, i, _, _ in rt):
+                continue
+            div = divs[r_idx]
+            for bk, i, g, pos in rt:
+                if div is None and (bk, i) not in changed_set:
+                    continue
+                w = -lvl.stacks[g][..., pos, :, :]
+                if div is not None:
+                    w = w / div[..., None]
+                sid = sid_of[(li, g)]
+                stacks[sid] = _with_rows(stacks[sid], [pos], w.unsqueeze(-3))
+                updated.add((sid, pos))
+
+    program = ap.program
+    if program is not None and updated:
+        positions, ops = [], []
+        p = 0
+        for level in ap.levels:
+            for tile in level:
+                if (tile[0], tile[1]) in updated:
+                    positions.append(p)
+                    ops.append(stacks[tile[0]][..., tile[1], :, :])
+                p += 1
+        program = (_with_rows(program[0], positions,
+                              torch.stack(ops, dim=-3)),) + program[1:]
+    return dataclasses.replace(ap, stacks=tuple(stacks), program=program)
+
+
+# ---------------------------------------------------------------------------
 # Program-once / solve-many handle
 # ---------------------------------------------------------------------------
 
@@ -1025,17 +1555,31 @@ class ProgrammedSolver:
     `solve_many` then stream right-hand sides.  mode="fused" (default) runs
     the arena executor - the CUDA kernel on the card - and "reference" the
     finalized schedule.
+
+    Maintenance state: the flat plan (the raw conductances - drift is a
+    readout effect, so `aged` re-finalizes from it without re-programming)
+    and the partitioned system with the resolved stage count (`repaired`
+    re-derives target blocks from them).  Both are optional: a solver
+    built without them cannot be aged or repaired.
     """
 
-    def __init__(self, fin: FinalizedPlan, mode: str = "fused"):
+    def __init__(self, fin: FinalizedPlan, arena: Optional[ArenaPlan] = None,
+                 mode: str = "fused", fplan: Optional[FlatPlan] = None,
+                 parts: Optional[PartitionedSystem] = None,
+                 stages: Optional[int] = None):
         if mode not in ("reference", "fused"):
             raise ValueError(f"mode must be 'reference' or 'fused', "
                              f"got {mode!r}")
         self._fin = fin
         # fused solvers pay the arena compile at programming time; the
         # reference mode compiles it on first fused use, if ever
-        self._arena = compile_arena(fin) if mode == "fused" else None
+        if arena is None and mode == "fused":
+            arena = compile_arena(fin)
+        self._arena = arena
         self._mode = mode
+        self._fplan = fplan
+        self._parts = parts
+        self._stages = stages
 
     @classmethod
     def program(cls, a, generator: torch.Generator, cfg: AnalogConfig,
@@ -1044,15 +1588,20 @@ class ProgrammedSolver:
         """Full programming flow for matrix A (one noise draw) on `device`."""
         a = torch.as_tensor(a, device=resolve_device(device))
         parts = partition_system(a, cfg, stages)
+        if stages is None:
+            stages = required_stages(a.shape[0], cfg.array_size)
         return cls.from_plan(program_system(parts, generator, cfg), cfg,
-                             mode=mode)
+                             mode=mode, parts=parts, stages=stages)
 
     @classmethod
     def from_plan(cls, plan: Union[SolvePlan, FlatPlan], cfg: AnalogConfig,
-                  mode: str = "fused") -> "ProgrammedSolver":
+                  mode: str = "fused",
+                  parts: Optional[PartitionedSystem] = None,
+                  stages: Optional[int] = None) -> "ProgrammedSolver":
         """Finalize an already-built plan (recursive or flat)."""
         fplan = plan if isinstance(plan, FlatPlan) else compile_plan(plan)
-        return cls(finalize(fplan, cfg), mode=mode)
+        return cls(finalize(fplan, cfg), mode=mode, fplan=fplan,
+                   parts=parts, stages=stages)
 
     @property
     def arena(self) -> ArenaPlan:
@@ -1065,6 +1614,65 @@ class ProgrammedSolver:
         return self._fin
 
     @property
+    def flat(self) -> Optional[FlatPlan]:
+        return self._fplan
+
+    @property
+    def stages(self) -> Optional[int]:
+        return self._stages
+
+    @property
+    def ageable(self) -> bool:
+        """Can this solver be re-finalized at new device ages?"""
+        return self._fplan is not None
+
+    @property
+    def repairable(self) -> bool:
+        """Can this solver re-program individual blocks in place?"""
+        return self._fplan is not None and self._parts is not None \
+            and self._stages is not None
+
+    def block_map(self) -> Tuple[BlockRecord, ...]:
+        """Every physical array of this plan (needs the stage count)."""
+        if self._stages is None:
+            raise ValueError("solver was built without a resolved stage "
+                             "count; block map unavailable")
+        return plan_block_map(self._fin.n, self._stages, self._fin.cfg)
+
+    def aged(self, drift_t) -> "ProgrammedSolver":
+        """This solver with its readout evaluated at new device ages
+        (`finalize`'s `drift_t`: a scalar or a `PlanAges`).  The
+        conductance stacks are shared, not copied."""
+        if self._fplan is None:
+            raise ValueError("solver does not retain its flat plan; aging "
+                             "unavailable")
+        fin = finalize(self._fplan, self._fin.cfg, drift_t=drift_t)
+        arena = compile_arena(fin) if self._arena is not None else None
+        return ProgrammedSolver(fin, arena, self._mode, fplan=self._fplan,
+                                parts=self._parts, stages=self._stages)
+
+    def repaired(self, blocks, generator: torch.Generator,
+                 drift_t=None) -> "ProgrammedSolver":
+        """Block-level repair: re-program only `blocks` (see `block_map`)
+        from `generator` and splice them in place.  `drift_t` (`finalize`
+        semantics) gives the ages the recomputed slices are read at; None
+        means fresh.  Repairing every block equals a full re-program under
+        the same generator state (module docstring)."""
+        if not self.repairable:
+            raise ValueError("solver does not retain its partitioned "
+                             "system; block repair unavailable - fall back "
+                             "to a full re-program")
+        fplan, changed = repair_blocks(self._fplan, self._parts,
+                                       self._fin.cfg, blocks, generator,
+                                       stages=self._stages)
+        fin = splice_finalized(self._fin, fplan, changed, drift_t=drift_t)
+        arena = None
+        if self._arena is not None:
+            arena = splice_arena(self._arena, fin, fplan, changed)
+        return ProgrammedSolver(fin, arena, self._mode, fplan=fplan,
+                                parts=self._parts, stages=self._stages)
+
+    @property
     def mode(self) -> str:
         return self._mode
 
@@ -1075,6 +1683,10 @@ class ProgrammedSolver:
     @property
     def n(self) -> int:
         return self._fin.n
+
+    @property
+    def num_arrays(self) -> int:
+        return self._fin.num_arrays
 
     @property
     def device(self) -> torch.device:
@@ -1116,6 +1728,40 @@ def plan_signature(n: int, stages: Optional[int], cfg: AnalogConfig):
     if stages is None:
         stages = required_stages(n, cfg.array_size)
     return ("blockamc", int(n), int(stages), _split_tree(n, stages), cfg)
+
+
+def pack_partitioned(parts_seq) -> PartitionedSystem:
+    """Stack same-signature PartitionedSystems leaf by leaf on a leading
+    instance axis; raises ValueError when their partition trees differ
+    (the reference's `jnp.stack` over the pytrees checks the same)."""
+    parts_seq = list(parts_seq)
+    if not parts_seq:
+        raise ValueError("pack_partitioned needs at least one system")
+
+    def stack(nodes):
+        first = nodes[0]
+        if any(type(t) is not type(first) for t in nodes):
+            raise ValueError("partitioned systems are not stackable: their "
+                             "partition trees differ")
+        if isinstance(first, LeafTarget):
+            return LeafTarget(_stack_leaves([t.a for t in nodes]))
+        if any(t.m != first.m for t in nodes):
+            raise ValueError("partitioned systems are not stackable: their "
+                             "splits differ")
+        return BlockTarget(stack([t.inv1 for t in nodes]),
+                           _stack_leaves([t.a2 for t in nodes]),
+                           _stack_leaves([t.a3 for t in nodes]),
+                           stack([t.inv4s for t in nodes]), first.m)
+
+    return PartitionedSystem(stack([p.root for p in parts_seq]),
+                             _stack_leaves([p.scale for p in parts_seq]))
+
+
+def _stack_leaves(xs) -> torch.Tensor:
+    if len({tuple(x.shape) for x in xs}) != 1:
+        raise ValueError(f"partitioned systems are not stackable: leaf "
+                         f"shapes {sorted({tuple(x.shape) for x in xs})}")
+    return torch.stack(xs)
 
 
 def program_system_batched(parts_seq: Sequence[PartitionedSystem],
@@ -1229,18 +1875,19 @@ def execute_arena_packed(pp: PackedArenaPlan, bs: torch.Tensor,
     dtype = torch.promote_types(bs.dtype, pp.scale.dtype)
     bk = bs[..., None] if single else bs
     b_in = analog.dac(bk, cfg).to(dtype)
-    if use_kernel:
+
+    def kernel(b_in):
         from repro_torch.kernels import ops as kops
-        m = b_in.shape[0]
-        arena = torch.zeros((m, pp.arena_size, bk.shape[2]), dtype=dtype,
-                            device=bs.device)
-        arena[:, pp.in_off:pp.in_off + pp.n] = b_in
-        arena = kops.arena_packed_apply(arena, pp.program_ops,
+        arena = torch.zeros((b_in.shape[0], pp.arena_size, b_in.shape[2]),
+                            dtype=dtype, device=b_in.device)
+        arena[:, pp.in_off:pp.in_off + pp.n] = b_in.detach()
+        arena = kops.arena_packed_apply(arena, pp.program_ops.detach(),
                                         *pp.program_meta)
-        out = _slot_gather({0: arena},
-                           _arena_out_spec(pp.out_spec, pp.slot_offsets))
-    else:
-        out = _cascade(pp.levels, pp.out_spec, pp.stacks, b_in)
+        return _slot_gather({0: arena},
+                            _arena_out_spec(pp.out_spec, pp.slot_offsets))
+
+    out = _cascade(pp.levels, pp.out_spec, pp.stacks, b_in,
+                   kernel if use_kernel else None)
     if single:
         out = out[..., 0]
     scale = pp.scale.reshape((-1,) + (1,) * (out.ndim - 1))

@@ -211,8 +211,10 @@ def readout_conductance(g: torch.Tensor, ni: NonidealConfig,
     G(t) = G(t0) * (t/t0)^-nu with t0 = 1 s.
 
     `drift_t` optionally overrides the config age: a scalar ages the whole
-    stack, a vector of leading-axis extent ages each tile on its own.
-    Ages below t0 clamp to 1; `drift_nu == 0` disables drift.
+    stack, a (num,) vector ages each array of a (..., num, r, c) stack on
+    its own (it lines up with the array axis -3, so a Monte-Carlo axis or
+    the pair's [gpos, gneg] axis in front is broadcast).  Ages below t0
+    clamp to 1; `drift_nu == 0` disables drift.
     """
     if drift_t is not None:
         if ni.drift_nu == 0.0:
@@ -221,8 +223,7 @@ def readout_conductance(g: torch.Tensor, ni: NonidealConfig,
                                             device=g.device), 1.0)
         factor = t ** -ni.drift_nu
         if factor.ndim:
-            factor = factor.reshape(
-                factor.shape + (1,) * (g.ndim - factor.ndim))
+            factor = factor.reshape(factor.shape + (1, 1))
         return g * factor
     if ni.drift_nu == 0.0 or ni.drift_t <= 0.0 or ni.drift_t == 1.0:
         return g

@@ -18,6 +18,16 @@ conductance stacks plus its static schedule.  The format is one dict:
 
 which is `FlatPlan`'s fields with every TileGrid given as its two
 conductance arrays.  Lists are accepted where tuples are shown.  A
+programmed solver may add its partitioned system and stage count, so that
+it can be aged and repaired in the port:
+
+      "stages":     int, the resolved number of partitioning stages,
+      "parts":      {"scale": float or 0-d array, "root": target}, where a
+                    target is {"a": array} (a leaf) or {"inv1": target,
+                    "a2": array, "a3": array, "inv4s": target, "m": int}.
+
+Per-array device ages (`PlanAges`) come across as {"inv": [...], "mvm":
+[...]}, one age or (num,) age vector a bucket (`plan_ages_from_numpy`).  A
 tile-solver plan (`core/distributed.py`'s `DistPlan`) comes across as
 
     {
@@ -41,7 +51,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.analog import AnalogConfig, TileGrid
-from repro_torch.core.blockamc import FlatPlan, ProgrammedSolver
+from repro_torch.core.blockamc import (BlockTarget, FlatPlan, LeafTarget,
+                                       PartitionedSystem, PlanAges,
+                                       ProgrammedSolver)
 from repro_torch.core.distributed import DistPlan
 from repro_torch.device import resolve_device
 
@@ -71,10 +83,41 @@ def flat_plan_from_numpy(d: dict, device="cuda") -> FlatPlan:
                     _freeze(d["inv_keys"]), _freeze(d["mvm_keys"]))
 
 
+def parts_from_numpy(d: dict, device="cuda") -> PartitionedSystem:
+    """A PartitionedSystem on `device` from the "parts" format above."""
+    dev = resolve_device(device)
+
+    def target(t):
+        if "a" in t:
+            return LeafTarget(torch.tensor(np.asarray(t["a"]), device=dev))
+        return BlockTarget(target(t["inv1"]),
+                           torch.tensor(np.asarray(t["a2"]), device=dev),
+                           torch.tensor(np.asarray(t["a3"]), device=dev),
+                           target(t["inv4s"]), int(t["m"]))
+
+    return PartitionedSystem(target(d["root"]),
+                             torch.tensor(np.asarray(d["scale"]),
+                                          device=dev))
+
+
 def solver_from_numpy(d: dict, cfg: AnalogConfig,
                       device="cuda") -> ProgrammedSolver:
-    """A ProgrammedSolver over a plan carried in the dict format above."""
-    return ProgrammedSolver.from_plan(flat_plan_from_numpy(d, device), cfg)
+    """A ProgrammedSolver over a plan carried in the dict format above;
+    with "parts" and "stages" it can be aged and repaired."""
+    parts = d.get("parts")
+    return ProgrammedSolver.from_plan(
+        flat_plan_from_numpy(d, device), cfg,
+        parts=None if parts is None else parts_from_numpy(parts, device),
+        stages=d.get("stages"))
+
+
+def plan_ages_from_numpy(d: dict, device="cuda") -> PlanAges:
+    """PlanAges on `device` from {"inv": [...], "mvm": [...]}."""
+    dev = resolve_device(device)
+
+    def ages(xs):
+        return tuple(torch.tensor(np.asarray(x), device=dev) for x in xs)
+    return PlanAges(ages(d["inv"]), ages(d["mvm"]))
 
 
 def dist_plan_from_numpy(d: dict, device="cuda") -> DistPlan:

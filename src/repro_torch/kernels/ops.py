@@ -24,6 +24,17 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import schur_gemm as _schur
 
 
+def _refuse_grad(name, *tensors):
+    """The kernels write their outputs outside autograd: a tensor that
+    requires grad would get a result whose gradient is silently wrong, so
+    it is refused."""
+    if any(x.requires_grad for x in tensors):
+        raise ValueError(
+            f"{name} runs outside autograd: pass tensors that do not "
+            f"require grad (detach them, or differentiate the caller's "
+            f"plain path)")
+
+
 def arena_packed_apply(arena, ops, in_offs, in_signs, out_offs, out_init, *,
                        dac_bits=None, adc_bits=None, fullscale: float = 1.0):
     """Run a whole packed tile program (see `kernels/arena_mvm.py`).
@@ -31,8 +42,11 @@ def arena_packed_apply(arena, ops, in_offs, in_signs, out_offs, out_init, *,
     arena (M, S, K), ops (M, T, R, C), window metadata (T, ...) shared by
     the instances.  Returns the updated arena in the arena's dtype.  On the
     card an f32 contiguous arena is updated in place (and returned); use
-    the return value either way.
+    the return value either way.  The kernel runs outside autograd, so an
+    arena or ops that require grad are refused, on the host as on the card
+    (`core.blockamc.execute_arena` differentiates the cascade itself).
     """
+    _refuse_grad("arena_packed_apply", arena, ops)
     kw = dict(dac_bits=dac_bits, adc_bits=adc_bits, fullscale=fullscale)
     if arena.device.type == "cpu":
         out = _ref.arena_packed_ref(arena, ops, in_offs, in_signs, out_offs,
@@ -64,7 +78,9 @@ def block_tridiag_solve(minv, rhs, *, gw: float):
     """Batched block-Thomas sweeps over precomputed inverse factors (see
     `kernels/banded_solve.py`): minv (B, nr, s, s), rhs (B, nr, s, k) ->
     (B, nr, s, k) in the common dtype of the two, float32 or float64 (any
-    other raises, on the host as on the card)."""
+    other raises, on the host as on the card).  Tensors that require grad
+    are refused, as `arena_packed_apply`'s are."""
+    _refuse_grad("block_tridiag_solve", minv, rhs)
     dtype = torch.promote_types(minv.dtype, rhs.dtype)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"block-Thomas sweeps take float32 or float64, "

@@ -87,8 +87,9 @@ class SolverService:
         self._queues: Dict[str, List[np.ndarray]] = {}
         self._stats: Dict[str, MatrixStats] = {}
         self._sigs: Dict[str, tuple] = {}
-        # one cached (id tuple, pack) per signature; program() drops every
-        # entry holding the re-programmed id
+        self._cfgs: Dict[str, AnalogConfig] = {}   # per-matrix cfg override
+        # one cached (id tuple, pack) per signature; program() and
+        # refresh() drop every entry holding the id
         self._packs: Dict[tuple, Tuple[Tuple[str, ...],
                                        PackedArenaPlan]] = {}
 
@@ -118,6 +119,11 @@ class SolverService:
         self._stats[matrix_id] = MatrixStats(
             program_time_s=time.perf_counter() - t0)
         self._sigs[matrix_id] = plan_signature(a.shape[0], self.stages, cfg)
+        self._cfgs[matrix_id] = cfg
+        self._drop_packs(matrix_id)
+
+    def _drop_packs(self, matrix_id: str) -> None:
+        """Forget every cached pack that holds `matrix_id`'s plan."""
         self._packs = {sig: (ids, pp) for sig, (ids, pp)
                        in self._packs.items() if matrix_id not in ids}
 
@@ -161,8 +167,41 @@ class SolverService:
         self._register(matrix_id, solver, a, solver.cfg, time.perf_counter())
         return solver
 
+    def refresh(self, matrix_id: str, solver: ProgrammedSolver) -> None:
+        """Swap in a maintained variant of an already-programmed solver.
+
+        Aging (`ProgrammedSolver.aged`) and block repair (`repaired`) give
+        a new solver for the same matrix, config and plan signature, so
+        queues, counters and the digital copy stay; only the solver and
+        every cached pack built from its arena are replaced.  Pending
+        right-hand sides are answered by the refreshed solver at the next
+        flush.  Unknown ids raise KeyError.
+        """
+        old = self._solvers[matrix_id]
+        if solver.n != old.n:
+            raise ValueError(f"refresh for {matrix_id!r} changed n: "
+                             f"{old.n} -> {solver.n}")
+        if solver.device != self.device:
+            raise ValueError(f"solver lives on {solver.device}, the service "
+                             f"on {self.device}")
+        self._solvers[matrix_id] = solver
+        self._drop_packs(matrix_id)
+
     def solver(self, matrix_id: str) -> ProgrammedSolver:
         return self._solvers[matrix_id]
+
+    def signature(self, matrix_id: str) -> tuple:
+        """The matrix's `plan_signature` (the flush_all bucketing key)."""
+        return self._sigs[matrix_id]
+
+    def dense(self, matrix_id: str) -> torch.Tensor:
+        """The stored digital copy of the matrix."""
+        return self._dense[matrix_id]
+
+    def matrix_cfg(self, matrix_id: str) -> AnalogConfig:
+        """The config this matrix was programmed under (the per-matrix
+        override, else the service's)."""
+        return self._cfgs[matrix_id]
 
     def stats(self, matrix_id: str) -> MatrixStats:
         return self._stats[matrix_id]

@@ -36,6 +36,24 @@ def flat_plan_dict(fp) -> dict:
     }
 
 
+def parts_dict(parts) -> dict:
+    """A JAX PartitionedSystem in `repro_torch.interop`'s "parts" format."""
+    def target(t):
+        if hasattr(t, "a"):
+            return {"a": np.asarray(t.a)}
+        return {"inv1": target(t.inv1), "a2": np.asarray(t.a2),
+                "a3": np.asarray(t.a3), "inv4s": target(t.inv4s),
+                "m": int(t.m)}
+    return {"scale": np.asarray(parts.scale), "root": target(parts.root)}
+
+
+def solver_dict(solver) -> dict:
+    """A JAX ProgrammedSolver's flat plan, partitioned system and stage
+    count in `repro_torch.interop`'s dict format."""
+    return dict(flat_plan_dict(solver.flat), stages=solver.stages,
+                parts=parts_dict(solver._parts))
+
+
 def dist_plan_dict(plan) -> dict:
     """A JAX DistPlan in `repro_torch.interop`'s dict format."""
     def pair(g):

@@ -21,8 +21,14 @@ float32 on the same bf16 inputs, element by element within 2^-8 of the
 element plus 1e-5 of max|out| (the kernel's one round-to-nearest of its
 float32 result to bf16, `bf16_rounding_close`); the model's
 two attention routes at 2e-4 of max|logit| in float32, the reference's
-in-model tolerance.
+in-model tolerance.  Gradients through the kernel path against the plain
+path's: 1e-4 of max|g| (the forward's sums reassociated, as whole
+solves); a repaired plan's spliced operators against a fresh compile:
+1e-5 of max|op| (batched LU on the card may differ in the last bits
+between a subset and the whole stack).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +44,8 @@ from repro_torch.kernels import schur_gemm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.serve import SolverService
-from repro_torch.hybrid import AnalogPreconditioner, solve_refined
+from repro_torch.hybrid import (AnalogPreconditioner, pcg_fixed,
+                                solve_refined)
 from _torch_parity import (bf16_rounding_close, one_step_close,
                            quantized_close, scaled_close, tile_program)
 
@@ -439,6 +446,144 @@ def test_fused_preconditioner_is_one_arena_launch_per_application(cuda):
     # the seed, the initial z = M r0, then one per iteration of the loop
     assert launches == 2 + int(res.iters.max())
     scaled_close(xs.cpu(), torch.linalg.solve(a, b).cpu(), 1e-8)
+
+
+def _cuda_solver(cuda, n, asz, stages, cfg=None, seed=None):
+    cfg = cfg or AnalogConfig(array_size=asz,
+                              nonideal=NonidealConfig(sigma=0.05),
+                              opa_gain=1e4)
+    gen = torch.Generator().manual_seed(n if seed is None else seed)
+    x = torch.randn(4 * n, n, generator=gen)
+    return blockamc.ProgrammedSolver.program(x.T @ x / (4 * n), gen, cfg,
+                                             stages, device=cuda)
+
+
+def _grads(run, b, w, stacks=()):
+    """d sum(run(b) * w) / d(b, *stacks), b a fresh leaf."""
+    b = b.detach().clone().requires_grad_()
+    return torch.autograd.grad((run(b) * w).sum(), [b, *stacks])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_kernel_path_rhs_gradient_matches_plain_path(cuda, packed):
+    """The gradient of a solve through the arena kernel: its forward is
+    one launch, and d/db equals the plain path's.  (The kernel updates the
+    arena outside autograd; a gradient taken straight through it came out
+    zero, silently.)"""
+    solver = _cuda_solver(cuda, 64, 16, 2)
+    gen = torch.Generator().manual_seed(1)
+    if packed:
+        plan = blockamc.pack_arena_plans(
+            [solver.arena, _cuda_solver(cuda, 64, 16, 2, seed=3).arena])
+        run = blockamc.execute_arena_packed
+        shape = (2, 64, 4)
+    else:
+        plan, run, shape = solver.arena, blockamc.execute_arena, (64, 4)
+    b = (torch.rand(shape, generator=gen) * 2 - 1).to(cuda)
+    w = torch.randn(shape, generator=gen).to(cuda)
+    before = arena_mvm.arena_packed_apply.launches
+    (g_kernel,) = _grads(lambda bb: run(plan, bb), b, w)
+    assert arena_mvm.arena_packed_apply.launches == before + 1
+    (g_plain,) = _grads(lambda bb: run(plan, bb, use_kernel=False), b, w)
+    assert arena_mvm.arena_packed_apply.launches == before + 1
+    assert float(g_plain.abs().max()) > 0
+    scaled_close(g_kernel.cpu(), g_plain.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [None, True])
+def test_kernel_path_stack_gradient_matches_plain_path(cuda, use_kernel):
+    """A gradient in the operator stacks (the calibration loop's) through
+    the kernel path is the plain path's: the forward is one launch and
+    the backward recomputes the registers on the plain levels."""
+    ap = _cuda_solver(cuda, 64, 16, 2).arena
+    stacks = tuple(s.clone().requires_grad_() for s in ap.stacks)
+    plan = dataclasses.replace(ap, stacks=stacks)
+    gen = torch.Generator().manual_seed(2)
+    b = (torch.rand(64, 3, generator=gen) * 2 - 1).to(cuda)
+    w = torch.randn(64, 3, generator=gen).to(cuda)
+    before = arena_mvm.arena_packed_apply.launches
+    got = _grads(lambda bb: blockamc.execute_arena(
+        plan, bb, use_kernel=use_kernel), b, w, stacks)
+    assert arena_mvm.arena_packed_apply.launches == before + 1
+    want = _grads(lambda bb: blockamc.execute_arena(
+        plan, bb, use_kernel=False), b, w, stacks)
+    for x, y in zip(got, want):
+        scaled_close(x.cpu(), y.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_pcg_fixed_gradient_through_the_fused_preconditioner(cuda):
+    """`pcg_fixed` ("differentiable by autograd") with a fused
+    preconditioner: each application is one arena launch, and the
+    gradient in b equals the one through the finalized (plain) form of
+    the same plan."""
+    cfg = AnalogConfig(array_size=16, opa_gain=1e5)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(256, 64, generator=gen, dtype=torch.float64)
+    a = (x.T @ x / 256).to(cuda)
+    fused = AnalogPreconditioner.program(a.float(), gen, cfg, 2,
+                                         device=cuda)
+    plain = AnalogPreconditioner(fused.fin, mode="reference")
+    b = (torch.rand(3, 64, generator=gen, dtype=torch.float64) * 2 - 1
+         ).to(cuda)
+    w = torch.randn(3, 64, generator=gen, dtype=torch.float64).to(cuda)
+
+    def run(prec):
+        return lambda bb: pcg_fixed(lambda v: v @ a.T, bb, precond=prec,
+                                    iters=4).x
+    before = arena_mvm.arena_packed_apply.launches
+    (g_fused,) = _grads(run(fused), b, w)
+    assert arena_mvm.arena_packed_apply.launches == before + 5
+    (g_plain,) = _grads(run(plain), b, w)
+    scaled_close(g_fused.cpu(), g_plain.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_tensors_that_require_grad_on_the_card(cuda):
+    args = [torch.from_numpy(x).to(cuda) for x in tile_program()]
+    before = arena_mvm.arena_packed_apply.launches
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.arena_packed_apply(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.arena_level_apply(args[0][0], args[1][0].requires_grad_(),
+                              *args[2:])
+    minv = torch.eye(8, device=cuda).expand(2, 3, 8, 8).contiguous()
+    rhs = torch.ones(2, 3, 8, 4, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.block_tridiag_solve(minv, rhs, gw=1.0)
+    assert arena_mvm.arena_packed_apply.launches == before
+
+
+@pytest.mark.cuda
+def test_repaired_solver_splice_matches_a_fresh_compile(cuda):
+    """Block repair on the card, of a plan aged to 50 s with the
+    repaired slices read at the same age: the spliced arena plan equals a
+    fresh finalize / compile_arena of the spliced flat plan (at
+    float tolerance: batched LU on the card may differ in the last bits
+    between a subset and the whole stack), and the repaired solver's
+    kernel path answers as the plain path does."""
+    cfg = AnalogConfig(array_size=16, opa_gain=1e4, nonideal=NonidealConfig(
+        sigma=0.02, r_wire=1.0, compensate_wire=True, wv_iters=3,
+        drift_nu=0.05))
+    solver = _cuda_solver(cuda, 64, 16, 2, cfg=cfg).aged(50.0)
+    refs = [r.ref for r in solver.block_map()]
+    rep = solver.repaired(refs[::3], torch.Generator().manual_seed(5),
+                          drift_t=50.0)
+    fresh = blockamc.compile_arena(blockamc.finalize(rep.flat, cfg,
+                                                     drift_t=50.0))
+    assert rep.arena.program is not None
+    scaled_close(rep.arena.program[0].cpu(), fresh.program[0].cpu(), 1e-5)
+    for x, y in zip(rep.arena.stacks, fresh.stacks):
+        scaled_close(x.cpu(), y.cpu(), 1e-5)
+    gen = torch.Generator().manual_seed(6)
+    b = (torch.rand(64, 4, generator=gen) * 2 - 1).to(cuda)
+    before = arena_mvm.arena_packed_apply.launches
+    xs = rep.solve_many(b)
+    assert arena_mvm.arena_packed_apply.launches == before + 1
+    scaled_close(xs.cpu(), blockamc.execute_arena(
+        fresh, b, use_kernel=False).cpu(), 1e-4)
 
 
 @pytest.mark.cuda
