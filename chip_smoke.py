@@ -88,6 +88,17 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      repair timed against a full re-program (n=256, 128x128 arrays,
      write-verify, 1/8 of the arrays); `calibrate_wire` at n=16, 120
      steps, recovering a planted 1 ohm from the nodal oracle to 5%;
+ 14. the async serving engine and the replicated fleet at Fig. 8's
+     configuration (16 tenants, `router_bench.py`'s open-loop Poisson
+     trace: 480 arrivals at 400 Hz, deadline 0.25 s): the fleet with 1 and
+     3 replicas on the card (replicated programming checked bit for bit),
+     r0's worker killed mid-traffic with the replacement restoring from a
+     `ProgramStore` or, its checkpoints value-corrupted, re-programming
+     (recovery times and their ratio), and `engine_bench.py`'s faulted
+     run on one engine (a dispatch exception, a stuck-at fault on one
+     tenant); every answer within 1e-4 of max|x| of its plan's plain
+     path, no deadline miss outside the replays and the faulted tenant,
+     at least one arena launch a dispatch; p50/p99 and goodput printed;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -766,6 +777,317 @@ def _maintenance_phase(dev, smi, n=256, tenants=16, k=8, waves=3, dt=0.6):
             "calibrate_wire nodal oracle (phase 13)": calib_banded,
             "repair_ms": repair_ms, "program_ms": program_ms,
             "calibration_s": t_cal, "r_hat": cal.r_hat}
+
+
+# The serving benches' full runs (benchmarks/router_bench.py:151-152,
+# benchmarks/engine_bench.py:132-133): tenants, requests, Poisson rate in
+# Hz, deadline in s.  Phase 14 holds each bench's per-tenant rate and
+# requests at its own tenant count, so the offered load grows with them.
+ROUTER_BENCH = (4, 160, 150.0, 5.0)
+ENGINE_BENCH = (8, 200, 150.0, 5.0)
+
+
+def _fleet_phase(dev, smi, root, n=256, tenants=16, replicas=3):
+    """Phase 14: the async serving engine and the replicated fleet on the
+    card at Fig. 8's configuration.  The fleet runs `router_bench.py`'s
+    seeded open-loop Poisson trace, and the faulted engine
+    `engine_bench.py`'s, each at 16 tenants with the bench's per-tenant
+    rate, per-tenant requests and deadline (`ROUTER_BENCH`,
+    `ENGINE_BENCH`); one trace serves every fleet scenario.  Scenarios:
+    the fleet with 1 and with 3 replicas, each then given a burst of the
+    trace's first `max_pending` requests back to back (the most one
+    replica admits) for its capacity; r0's worker killed mid-traffic, the
+    replacement restoring from the `ProgramStore` (`death_restore`) or,
+    every checkpoint value-corrupted, re-programming (`death_reprogram`);
+    `engine_bench.py`'s faulted run on one engine.  Every answer is held
+    to the plain path of the plan that answered it.  Returns the launch
+    counts and the scenarios' numbers."""
+    import tempfile
+    from repro_torch import keys
+    from repro_torch.checkpoint import ProgramStore
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.core import blockamc
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.matrices import wishart
+    from repro_torch.kernels import arena_mvm
+    from repro_torch.runtime import (ChaosInjector, DeviceFault,
+                                     DispatchException, ReplicaDeath)
+    from repro_torch.serve import (AsyncSolverEngine, ReplicatedSolverFleet,
+                                   SolverService)
+    cfg = AnalogConfig(array_size=64, nonideal=NonidealConfig(sigma=0.05))
+    # engine_bench.py's fault: stuck-at arrays no re-program key can pass
+    severe = NonidealConfig(sigma=0.02, p_stuck_off=0.6, g_stuck_off=0.0)
+    # router_bench.py's engine settings
+    engine_kw = dict(max_batch=8, flush_interval=0.01, max_pending=512,
+                     retries=2, backoff=0.0)
+
+    def make_trace(bench):
+        """`bench`'s seeded open-loop trace at `tenants` tenants."""
+        m, total, rate, deadline = bench
+        requests, rate_hz = total * tenants // m, rate * tenants / m
+        rng = np.random.default_rng(14)
+        return dict(
+            requests=requests, rate_hz=rate_hz, deadline_s=deadline,
+            arrivals=np.cumsum(rng.exponential(1.0 / rate_hz, requests)),
+            who=rng.integers(0, tenants, requests),
+            rhs=rng.uniform(-1.0, 1.0, size=(requests, n)).astype(np.float32))
+
+    fleet_tr, engine_tr = make_trace(ROUTER_BENCH), make_trace(ENGINE_BENCH)
+    for what, bench, tr in (("fleet", ROUTER_BENCH, fleet_tr),
+                            ("faulted engine", ENGINE_BENCH, engine_tr)):
+        print(f"phase 14: {what}, n={n} stages=2 64x64 sigma=0.05, "
+              f"{tenants} tenants, {tr['requests']} Poisson arrivals at "
+              f"{tr['rate_hz']:g} Hz, deadline {tr['deadline_s']:g} s (the "
+              f"bench's {bench[1]} requests at {bench[2]:g} Hz over "
+              f"{bench[0]} tenants, held per tenant); card: {smi}")
+    data = torch.Generator().manual_seed(14)
+    mats = [wishart(data, n, device="cpu").numpy() for _ in range(tenants)]
+    ids = [f"b{i}" for i in range(tenants)]
+    base = keys.PRNGKey(14)
+    tkeys = [keys.fold_in(base, 100 + i) for i in range(tenants)]
+
+    def plain_answers(tr, solver, mid):
+        """The plain path's answers of `solver` to every rhs of `mid`."""
+        rows = np.flatnonzero(tr["who"] == ids.index(mid))
+        b = torch.from_numpy(tr["rhs"][rows].T.copy()).to(dev)
+        x = blockamc.execute_arena(solver.arena, b, use_kernel=False)
+        return dict(zip(rows.tolist(), x.T.cpu().numpy()))
+
+    def same_stacks(a, b, what):
+        for (k1, x1), (k2, x2) in zip(
+                flatten({"fin": a.finalized, "arena": a.arena}),
+                flatten({"fin": b.finalized, "arena": b.arena})):
+            if k1 != k2 or not torch.equal(x1, x2):
+                _fail(f"{what}: leaf {k1} differs")
+
+    def drive(tr, submit, burst=None):
+        """The trace through `submit`, open loop; or, given `burst`, its
+        first `burst` requests back to back.  (results, wall s)."""
+        futs = []
+        t0 = time.perf_counter()
+        for i in range(burst or tr["requests"]):
+            lag = tr["arrivals"][i] - (time.perf_counter() - t0)
+            if lag > 0 and not burst:
+                time.sleep(lag)
+            futs.append(submit(ids[tr["who"][i]], tr["rhs"][i]))
+        results = [f.result(timeout=120) for f in futs]   # typed error raises
+        return results, time.perf_counter() - t0
+
+    def check_answers(label, tr, results, plans):
+        """Each answer within SOLVE_REL_TOL of max|x| of its plan's plain
+        path; `plans(i, result)` names the answering plan's answers."""
+        worst = 0.0
+        for i, res in enumerate(results):
+            if res.matrix_id != ids[tr["who"][i]] or res.mode != "analog":
+                _fail(f"{label}: request {i} answered by {res.matrix_id} "
+                      f"in mode {res.mode}")
+            ref_x = plans(i, res)[i]
+            err = float(np.max(np.abs(res.x - ref_x)))
+            rel = err / float(np.max(np.abs(ref_x)))
+            worst = max(worst, rel)
+            if not rel <= SOLVE_REL_TOL:
+                _fail(f"{label}: request {i} ({res.matrix_id}) is "
+                      f"{rel:.3e} of max|x| from its plan's plain path")
+        return worst
+
+    def summary(label, results, wall, launches, dispatches, extra=""):
+        lat = np.array([r.latency_s for r in results]) * 1e3
+        misses = sum(r.deadline_missed for r in results)
+        st = dict(p50_ms=float(np.percentile(lat, 50)),
+                  p99_ms=float(np.percentile(lat, 99)),
+                  wall_s=wall, offered_rps=len(results) / wall,
+                  goodput_rps=(len(results) - misses) / wall,
+                  misses=misses, launches=launches, dispatches=dispatches)
+        print(f"  {label}: p50 {st['p50_ms']:.2f} ms, p99 "
+              f"{st['p99_ms']:.2f} ms, goodput {st['goodput_rps']:.1f}/s "
+              f"of {st['offered_rps']:.1f}/s offered, {misses} deadline "
+              f"misses, {dispatches} dispatches, {launches} arena launches"
+              f"{extra} (host clock; card: {smi})")
+        if launches < dispatches:
+            _fail(f"{label}: {launches} arena launches for {dispatches} "
+                  f"dispatches")
+        return st
+
+    out, launches = {}, {}
+    scratch = root / "artifacts"
+    scratch.mkdir(exist_ok=True)
+    deadline_s = fleet_tr["deadline_s"]
+    scenarios = [
+        ("baseline_1", 1, (), None),
+        ("baseline_3", replicas, (), None),
+        ("death_restore", replicas,
+         (ReplicaDeath(at_dispatch=2, replica="r0"),), None),
+        ("death_reprogram", replicas,
+         (ReplicaDeath(at_dispatch=2, replica="r0"),),
+         lambda store: [store.corrupt(mid, "values")
+                        for mid in store.matrix_ids()]),
+    ]
+    for label, n_rep, events, damage in scenarios:
+        chaos = ChaosInjector(list(events)) if events else None
+        with tempfile.TemporaryDirectory(dir=scratch) as store_dir:
+            store = ProgramStore(store_dir)
+            fleet = ReplicatedSolverFleet(
+                lambda: SolverService(cfg, stages=2), n_rep,
+                engine_kw=engine_kw, store=store, chaos=chaos)
+            with fleet:
+                t0 = time.perf_counter()
+                for mid, a, key in zip(ids, mats, tkeys):
+                    fleet.program(mid, a, key)
+                t_prog = time.perf_counter() - t0
+                lead = fleet._replicas[0].engine.service
+                for r in fleet._replicas[1:]:
+                    for mid in ids:
+                        same_stacks(lead.solver(mid),
+                                    r.engine.service.solver(mid),
+                                    f"{label}: {r.name}'s {mid} vs r0's")
+                solvers = {mid: lead.solver(mid) for mid in ids}
+                expect = {}
+                for mid in ids:
+                    expect.update(plain_answers(fleet_tr, solvers[mid], mid))
+                if damage is not None:
+                    damage(store)
+                engines = [r.engine for r in fleet._replicas]
+                torch.cuda.synchronize()
+                arena_mvm.arena_packed_apply.launches = 0
+                results, wall = drive(fleet_tr, lambda mid, b: fleet.submit(
+                    mid, b, deadline_s=deadline_s))
+                if events and not _wait_for(
+                        lambda: fleet.stats.replacements >= 1, 120.0):
+                    _fail(f"{label}: the dead replica was not replaced")
+                burst = None
+                if not events:         # capacity: the most a replica admits
+                    before = [e.stats.dispatches for e in engines]
+                    burst, burst_wall = drive(
+                        fleet_tr, fleet.submit,
+                        burst=min(engine_kw["max_pending"],
+                                  fleet_tr["requests"]))
+                    burst_dispatches = [e.stats.dispatches - d
+                                        for e, d in zip(engines, before)]
+                torch.cuda.synchronize()
+                count = arena_mvm.arena_packed_apply.launches
+                engines += [r.engine for r in fleet._replicas
+                            if r.engine not in engines]
+                if events:             # the replacement's plans, by bits
+                    fresh = fleet._replicas[0]
+                    for mid in ids:
+                        same_stacks(solvers[mid],
+                                    fresh.engine.service.solver(mid),
+                                    f"{label}: the replacement's {mid}")
+            fs = fleet.stats
+        worst = check_answers(label, fleet_tr, results,
+                              lambda i, res: expect)
+        dispatches = sum(e.stats.dispatches for e in engines)
+        rec_ms = 1e3 * sum(fs.restore_s or fs.reprogram_s)
+        extra = (f"; programmed {tenants} x {n_rep} in {t_prog:.2f} s, "
+                 f"worst answer {worst:.2e} of max|x|")
+        if events:
+            extra += (f"; {fs.replays} replays, {fs.restores} restores, "
+                      f"{fs.reprogram_fallbacks} re-programs, "
+                      f"{fs.rejected_checkpoints} rejected checkpoints, "
+                      f"recovery {rec_ms:.1f} ms")
+        st = summary(label, results, wall, count, dispatches, extra)
+        st.update(program_s=t_prog, worst_rel_err=worst,
+                  replays=fs.replays, hedges=fs.hedges,
+                  restores=fs.restores,
+                  reprogram_fallbacks=fs.reprogram_fallbacks,
+                  rejected_checkpoints=fs.rejected_checkpoints,
+                  recovery_ms=rec_ms, deaths=fs.deaths)
+        if burst is not None:
+            burst_worst = check_answers(f"{label} burst", fleet_tr, burst,
+                                        lambda i, res: expect)
+            st.update(capacity_rps=len(burst) / burst_wall,
+                      burst_dispatches_by_replica=burst_dispatches,
+                      burst_worst_rel_err=burst_worst)
+            print(f"  {label} burst: {len(burst)} requests back to back "
+                  f"answered in {burst_wall:.3f} s = "
+                  f"{st['capacity_rps']:.1f}/s, dispatches by replica "
+                  f"{burst_dispatches}, worst answer {burst_worst:.2e} of "
+                  f"max|x| (host clock; card: {smi})")
+        # a replica's loss: only the replayed legs may miss a deadline
+        if st["misses"] > (fs.replays if events else 0):
+            _fail(f"{label}: {st['misses']} deadline misses, "
+                  f"{fs.replays} replays")
+        if label == "death_restore" and (
+                fs.restores != tenants or fs.reprogram_fallbacks):
+            _fail(f"{label}: {fs.restores} restores, "
+                  f"{fs.reprogram_fallbacks} re-programs")
+        if label == "death_reprogram" and (
+                fs.reprogram_fallbacks != tenants or fs.restores
+                or fs.rejected_checkpoints != tenants):
+            _fail(f"{label}: {fs.reprogram_fallbacks} re-programs, "
+                  f"{fs.restores} restores, {fs.rejected_checkpoints} "
+                  f"rejected")
+        if events and fs.deaths != 1:
+            _fail(f"{label}: {fs.deaths} replica deaths")
+        out[label] = st
+        launches[label] = count
+    ratio = (out["death_reprogram"]["recovery_ms"]
+             / out["death_restore"]["recovery_ms"])
+    out["recovery_ratio"] = ratio
+    print(f"  recovery: re-program {out['death_reprogram']['recovery_ms']:.1f}"
+          f" ms / restore {out['death_restore']['recovery_ms']:.1f} ms = "
+          f"{ratio:.2f}x; capacity 3 vs 1 replicas: "
+          f"{out['baseline_3']['capacity_rps']:.1f} vs "
+          f"{out['baseline_1']['capacity_rps']:.1f}/s (card: {smi})")
+
+    # engine_bench.py's faulted run: one engine, DispatchException at 3, a
+    # stuck-at DeviceFault on b0 at 5
+    chaos = ChaosInjector([
+        DispatchException(at_dispatch=3),
+        DeviceFault(at_dispatch=5, matrix_id="b0", nonideal=severe)])
+    eng = AsyncSolverEngine(SolverService(cfg, stages=2), max_batch=8,
+                            flush_interval=0.02, max_pending=512, retries=2,
+                            backoff=0.0, chaos=chaos)
+    for mid, a, key in zip(ids, mats, tkeys):
+        eng.program(mid, a, key)
+    original = {mid: eng.service.solver(mid) for mid in ids}
+    with eng:
+        torch.cuda.synchronize()
+        arena_mvm.arena_packed_apply.launches = 0
+        results, wall = drive(engine_tr, lambda mid, b: eng.submit(
+            mid, b, deadline_s=engine_tr["deadline_s"]))
+        torch.cuda.synchronize()
+        count = arena_mvm.arena_packed_apply.launches
+    es = eng.stats
+    fired = [(i, type(e).__name__) for i, e in chaos.log]
+    if fired != [(3, "DispatchException"), (5, "DeviceFault")] or \
+            es.quarantines != 1 or es.reprograms != 1 or \
+            eng.matrix_status("b0") != "healthy":
+        _fail(f"faulted engine: log {fired}, {es.quarantines} quarantines, "
+              f"{es.reprograms} re-programs, b0 {eng.matrix_status('b0')}")
+    expect = {}
+    for mid in ids:
+        expect.update(plain_answers(engine_tr, original[mid], mid))
+    recovered = plain_answers(engine_tr, eng.service.solver("b0"), "b0")
+    worst = check_answers("faulted engine", engine_tr, results,
+                          lambda i, res: (recovered if res.reprograms
+                                          else expect))
+    healthy_misses = sum(r.deadline_missed for r in results
+                         if r.matrix_id != "b0")
+    if healthy_misses:
+        _fail(f"faulted engine: {healthy_misses} deadline misses among "
+              f"healthy tenants")
+    st = summary("faulted engine", results, wall, count,
+                 es.dispatches - es.retries,
+                 f"; {es.retries} retries, {es.quarantines} quarantine, "
+                 f"{es.replays} replays, recovery "
+                 f"{1e3 * es.recovery_s[0]:.1f} ms, worst answer "
+                 f"{worst:.2e} of max|x|")
+    st.update(recovery_ms=1e3 * es.recovery_s[0], worst_rel_err=worst,
+              quarantines=es.quarantines, replays=es.replays)
+    out["faulted_engine"] = st
+    launches["faulted_engine"] = count
+    return launches, out
+
+
+def _wait_for(cond, timeout):
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if cond():
+            return True
+        time.sleep(0.01)
+    return cond()
 
 
 def _xbar_bound(l, b, r, c, bits):
@@ -1680,6 +2002,11 @@ def main() -> int:
     maint = _maintenance_phase(dev, smi)
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 14. the async engine and the replicated fleet ----------------------
+    t0 = time.perf_counter()
+    fleet_launches, fleet = _fleet_phase(dev, smi, root)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -1707,9 +2034,16 @@ def main() -> int:
                              **{path: maint[path] for path in (
                                  "maintained flush_all (phase 13)",
                                  "kernel-path gradients (phase 13)",
-                                 "calibrate_wire forwards (phase 13)")}},
+                                 "calibrate_wire forwards (phase 13)")},
+                             "replicated fleet (phase 14)": sum(
+                                 count for label, count
+                                 in fleet_launches.items()
+                                 if label != "faulted_engine"),
+                             "async engine, faulted (phase 14)":
+                                 fleet_launches["faulted_engine"]},
         "maintenance": {key: maint[key] for key in (
             "repair_ms", "program_ms", "calibration_s", "r_hat")},
+        "fleet": fleet,
     }]
     solver = banded_stats["solver path"]
     kernels.append({

@@ -567,6 +567,16 @@ def _ages_at(ages, b, sel=None):
     return vec[sel.to(vec.device)]
 
 
+def _lu_factor(ops: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LU, 1-based pivots) of a stack of operators, singular ones
+    included: a stuck-at fault can zero a pivot, and the reference's
+    `lu_factor` then factors on (its solves turn non-finite, which the
+    serving canary catches) where `torch.linalg.lu_factor` raises.  No
+    host read of the error code either, so the card is not stalled."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(ops)
+    return lu, piv
+
+
 def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
              drift_t=None, use_kernel: Optional[bool] = None
              ) -> FinalizedPlan:
@@ -587,10 +597,9 @@ def finalize(fplan: FlatPlan, cfg: AnalogConfig, r_wire=None,
     """
     inv_ages, mvm_ages = _split_ages(fplan, drift_t)
     lu_stacks = tuple(
-        tuple(torch.linalg.lu_factor(
-            _inv_operators(g, cfg, r_wire=r_wire,
-                           drift_t=_ages_at(inv_ages, b),
-                           use_kernel=use_kernel)))
+        _lu_factor(_inv_operators(g, cfg, r_wire=r_wire,
+                                  drift_t=_ages_at(inv_ages, b),
+                                  use_kernel=use_kernel))
         for b, g in enumerate(fplan.inv_stacks))
     mvm_eff = tuple(g.a_eff(cfg, r_wire=r_wire,
                             drift_t=_ages_at(mvm_ages, b),
@@ -1443,7 +1452,7 @@ def splice_finalized(fin: FinalizedPlan, fplan: FlatPlan, changed,
         sel = torch.tensor(idxs, device=grid.gpos.device)
         sub = TileGrid(grid.gpos[..., sel, :, :], grid.gneg[..., sel, :, :],
                        grid.scale, grid.g0)
-        lu_s, piv_s = torch.linalg.lu_factor(_inv_operators(
+        lu_s, piv_s = _lu_factor(_inv_operators(
             sub, cfg, r_wire=r_wire, drift_t=_ages_at(inv_ages, b, sel)))
         lu, piv = lu_stacks[b]
         piv = piv.clone()

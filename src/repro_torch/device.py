@@ -1,6 +1,8 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,12 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_scope(device):
+    """A context that makes `device` the current card for the calls inside
+    it (a no-op for the host): a serving thread pins its card with it."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -5,7 +5,10 @@ Every source in `csrc/` is compiled for sm_90a by its own `nvcc`, all
 started together, into `build/` beside this file (listed in .gitignore).
 A library's file name carries a hash of its source, the shared headers
 (`csrc/*.cuh`) and the flags, so a stale build is never loaded.  Nothing is built at import time: `load` builds on
-first use.
+first use.  Each build writes a temporary file named after its process and
+thread and renames it into place, and `load` holds a module lock: serving
+replicas whose worker threads reach a cold build directory together build
+each library once and load it once.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -23,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}   # name -> loaded ctypes.CDLL (one per process)
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,7 +65,8 @@ def build(names=None) -> dict:
         if out.exists():
             procs[name] = (out, None, None)
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -71,6 +77,7 @@ def build(names=None) -> dict:
         if proc is not None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
                 failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
                               f"{log}")
                 continue
@@ -83,12 +90,14 @@ def build(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
-    return lib
+    """The loaded library of `csrc/<name>.cu`, built on first use (once,
+    however many threads ask at the same time)."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib

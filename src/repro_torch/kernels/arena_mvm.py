@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -36,6 +37,7 @@ from repro_torch.kernels._launch import (column_slice, launch_on, num_sms,
 
 _MAX_STAGES = 3         # panels in flight: 3 keep the main path fed
 _MAX_KB = 16            # widest column slice of the smem instance
+_COUNT_LOCK = threading.Lock()   # serving replicas launch from threads
 
 
 @functools.lru_cache(maxsize=256)
@@ -131,7 +133,8 @@ def arena_packed_apply(arena: torch.Tensor, ops: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"arena kernel launch failed: "
                            f"{lib.arena_error_string(err).decode()}")
-    arena_packed_apply.launches += 1
+    with _COUNT_LOCK:
+        arena_packed_apply.launches += 1
     return arena
 
 

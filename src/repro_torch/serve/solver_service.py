@@ -153,10 +153,13 @@ class SolverService:
         self._register(matrix_id, solver, a, cfg, t0)
         return solver
 
-    def install(self, matrix_id: str, solver: ProgrammedSolver,
-                a) -> ProgrammedSolver:
+    def install(self, matrix_id: str, solver: ProgrammedSolver, a,
+                cfg: Optional[AnalogConfig] = None) -> ProgrammedSolver:
         """Register an already-programmed solver (plans carried from
-        elsewhere); same front-door checks and bookkeeping as `program`."""
+        elsewhere or restored from a `ProgramStore`); same front-door
+        checks and bookkeeping as `program`.  `cfg` (default: the
+        solver's) is the config recorded for the matrix and its
+        signature."""
         a = self._check_matrix(matrix_id, a)
         if a.shape[0] != solver.n:
             raise ValueError(f"solver was programmed for n={solver.n}, "
@@ -164,7 +167,8 @@ class SolverService:
         if solver.device != self.device:
             raise ValueError(f"solver lives on {solver.device}, the service "
                              f"on {self.device}")
-        self._register(matrix_id, solver, a, solver.cfg, time.perf_counter())
+        cfg = cfg if cfg is not None else solver.cfg
+        self._register(matrix_id, solver, a, cfg, time.perf_counter())
         return solver
 
     def refresh(self, matrix_id: str, solver: ProgrammedSolver) -> None:

@@ -220,3 +220,34 @@ def test_cuda_entry_point_raises_without_a_card():
     a, _ = _problem(8)
     with pytest.raises(RuntimeError, match="cuda"):
         tb.ProgrammedSolver.program(a, torch.Generator(), AnalogConfig())
+
+
+def test_finalize_factors_a_singular_array_like_the_reference():
+    """A stuck-at fault can zero an INV array's differential conductance.
+    The reference factors it anyway (its solves turn non-finite, and the
+    serving canary quarantines the matrix); the port must not raise in
+    `finalize` there, on the whole plan or on a repaired slice."""
+    cfg = JCfg(array_size=8, nonideal=JNi(sigma=0.02))
+    rng = np.random.default_rng(4)
+    g = rng.normal(size=(16, 16))
+    a = (g @ g.T / 16 + np.eye(16)).astype(np.float32)
+    js = jb.ProgrammedSolver.program(jnp.asarray(a), jax.random.PRNGKey(2),
+                                     cfg, 1)
+    leaves, treedef = jax.tree_util.tree_flatten(js.flat)
+    dead = js.flat.inv_stacks[0]
+    i = next(k for k, x in enumerate(leaves) if x is dead.gneg)
+    leaves[i] = dead.gneg.at[0].set(dead.gpos[0])      # G+ - G- = 0
+    jfp = jax.tree_util.tree_unflatten(treedef, leaves)
+    jx = np.asarray(jb.execute_finalized(jb.finalize(jfp, cfg),
+                                         jnp.ones(16)))
+    d = flat_plan_dict(js.flat)
+    gp, gn = d["inv_stacks"][0]
+    gn = gn.copy()
+    gn[0] = gp[0]
+    d["inv_stacks"][0] = (gp, gn)
+    tcfg = torch_cfg(cfg)
+    fin = tb.finalize(interop.flat_plan_from_numpy(d, device="cpu"), tcfg)
+    tx = tb.execute_finalized(fin, torch.ones(16)).numpy()
+    assert not np.all(np.isfinite(jx)) and not np.all(np.isfinite(tx))
+    solver = tb.ProgrammedSolver(fin)
+    assert not bool(torch.isfinite(solver.solve(torch.ones(16))).all())

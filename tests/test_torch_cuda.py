@@ -713,3 +713,114 @@ def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     assert flash_attention.flash_attention.launches == \
         before + 2 * cfg.n_layers
     scaled_close(full[:, -1].cpu(), logits.cpu(), 2e-4)
+
+
+# ---------------------------------------------- the serving stack ---------
+
+def _serving_matrix(seed, n=128):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(4 * n, n, generator=g)
+    return (x.T @ x / (4 * n)).numpy()
+
+
+def _serving_cfg():
+    return AnalogConfig(array_size=32, nonideal=NonidealConfig(sigma=0.05))
+
+
+@pytest.mark.cuda
+def test_three_engines_flush_at_once_from_their_worker_threads(cuda):
+    """Three engines on one card, each flushing a packed bucket from its
+    own worker thread at the same moment: every answer matches the plain
+    path of its plan, and each flush launched the arena kernel."""
+    from repro_torch import keys
+    from repro_torch.serve import AsyncSolverEngine
+    engines = [AsyncSolverEngine(SolverService(_serving_cfg(), stages=2),
+                                 max_batch=64, flush_interval=60.0,
+                                 name=f"e{e}") for e in range(3)]
+    for e, eng in enumerate(engines):
+        for i in range(4):
+            eng.program(f"m{i}", _serving_matrix(10 * e + i),
+                        keys.fold_in(keys.PRNGKey(e), i))
+    rng = np.random.default_rng(0)
+    before = arena_mvm.arena_packed_apply.launches
+    futs = []
+    for eng in engines:
+        eng.start()
+    try:
+        for eng in engines:
+            for j in range(8):
+                b = rng.uniform(-1, 1, 128).astype(np.float32)
+                futs.append((eng, f"m{j % 4}", b,
+                             eng.submit(f"m{j % 4}", b)))
+        for eng in engines:
+            eng.flush_now()
+        results = [(eng, mid, b, f.result(timeout=120))
+                   for eng, mid, b, f in futs]
+    finally:
+        for eng in engines:
+            eng.stop(timeout=60)
+    assert arena_mvm.arena_packed_apply.launches - before >= 3
+    for eng, mid, b, res in results:
+        assert eng.stats.dispatches == 1 and res.mode == "analog"
+        plain = blockamc.execute_arena(
+            eng.service.solver(mid).arena,
+            torch.from_numpy(b).to(cuda), use_kernel=False)
+        scaled_close(res.x, plain.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_replicated_programming_is_bit_identical_on_the_card(cuda):
+    from repro_torch import keys
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.serve import ReplicatedSolverFleet
+    fleet = ReplicatedSolverFleet(
+        lambda: SolverService(_serving_cfg(), stages=2), 3,
+        engine_kw=dict(max_batch=4, flush_interval=0.005))
+    assert {r.engine.device for r in fleet._replicas} == {
+        torch.device("cuda", torch.cuda.current_device())}
+    with fleet:
+        for i in range(2):
+            fleet.program(f"m{i}", _serving_matrix(i),
+                          keys.fold_in(keys.PRNGKey(3), i))
+        for i in range(2):
+            trees = [list(flatten({"fin": s.finalized, "arena": s.arena}))
+                     for s in (r.engine.service.solver(f"m{i}")
+                               for r in fleet._replicas)]
+            for leaves in zip(*trees):
+                assert len({k for k, _ in leaves}) == 1
+                assert all(torch.equal(leaves[0][1], x) for _, x in leaves)
+                assert leaves[0][1].device.type == "cuda"
+        b = np.ones(128, np.float32)
+        res = fleet.submit("m0", b).result(timeout=60)
+        plain = blockamc.execute_arena(
+            fleet._replicas[0].engine.service.solver("m0").arena,
+            torch.from_numpy(b).to(cuda), use_kernel=False)
+        scaled_close(res.x, plain.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_store_saved_on_the_card_restores_on_the_card(cuda, tmp_path):
+    """A plan programmed on the card, saved, restored onto the card and
+    installed: its canary passes the trip calibrated when it was
+    programmed, and it answers bit for bit like the saved plan."""
+    from repro_torch import keys
+    from repro_torch.checkpoint import ProgramStore
+    from repro_torch.serve import AsyncSolverEngine
+    a = _serving_matrix(5)
+    key = keys.PRNGKey(5)
+    first = AsyncSolverEngine(SolverService(_serving_cfg(), stages=2))
+    first.program("m", a, key)
+    solver = first.service.solver("m")
+    store = ProgramStore(str(tmp_path))
+    store.save("m", solver, a, key, first.service.signature("m"),
+               extra={"trip": first.matrix_trip("m")})
+    second = AsyncSolverEngine(SolverService(_serving_cfg(), stages=2))
+    restored, meta = store.restore("m", solver, a, key,
+                                   first.service.signature("m"))
+    assert restored.device.type == "cuda"
+    second.install("m", restored, a, key, meta["trip"])   # canary passes
+    assert second.health()["canary"]["m"] <= meta["trip"]
+    b = torch.linspace(-1, 1, 128, device=cuda)
+    before = arena_mvm.arena_packed_apply.launches
+    assert torch.equal(restored.solve(b), solver.solve(b))
+    assert arena_mvm.arena_packed_apply.launches == before + 2

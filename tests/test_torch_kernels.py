@@ -20,6 +20,9 @@ atol) in float32 and 3e-2 in bfloat16 - the port's plain version, the CPU
 wrapper, the JAX oracle and the JAX Pallas kernel (interpret mode) are all
 one softmax attention summed in another order or blocked differently.
 """
+import sys
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +162,57 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     path = _build.library_path("arena_mvm")
     assert path.parent == _build.BUILD and path.name.startswith(
         "libarena_mvm-")
+
+
+def test_concurrent_first_loads_build_once_and_load_once(monkeypatch,
+                                                         tmp_path):
+    """Serving replicas reach a cold build directory from several worker
+    threads at once: one compile, one load, one library path for all of
+    them, and no temporary file left behind.  A stand-in compiler sleeps
+    before it writes its output, so every thread is inside `load` while
+    the first compile runs."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "demo.cu").write_text("// stand-in source\n")
+    calls = tmp_path / "compiles.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        f"open({str(calls)!r}, 'a').write(out + '\\n')\n"
+        "time.sleep(0.5)\n"
+        "open(out, 'wb').write(b'library')\n")
+    nvcc.chmod(0o755)
+    loaded = []
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", build)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: loaded.append(path) or ("lib", path))
+    gate = threading.Barrier(4)
+    results, errors = [], []
+
+    def first_call():
+        gate.wait(timeout=30)
+        try:
+            results.append(_build.load("demo"))
+        except Exception as e:                       # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_call) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    assert not errors, errors
+    assert len(calls.read_text().splitlines()) == 1     # one compile
+    assert loaded == [str(_build.library_path("demo"))]   # one load
+    assert len(results) == 4 and len(set(results)) == 1
+    assert sorted(p.name for p in build.iterdir()) == [
+        _build.library_path("demo").name]                # no .tmp left
 
 
 # ------------------------------ crossbar_mvm ------------------------------
