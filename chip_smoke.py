@@ -8,8 +8,9 @@ holds each against its plain PyTorch version on the card, and drives the
 port's paths at full width, checking that they went through the kernels:
 the paper's program-once / solve-many serving flow, the Fig. 9
 interconnect study under the exact nodal wire model, the kernel bench's
-rows, the example's path (`examples/solve_linear_system.py`) and the
-language-model serving path (glm4-9b prefill and decode).  Phases
+rows, the example's path (`examples/solve_linear_system.py`), the
+language-model serving path (glm4-9b prefill and decode) and the training
+path with the BlockAMC preconditioner (stablelm-1.6b).  Phases
 (every check raises; nothing is caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
@@ -99,6 +100,20 @@ language-model serving path (glm4-9b prefill and decode).  Phases
      tenant); every answer within 1e-4 of max|x| of its plan's plain
      path, no deadline miss outside the replays and the faulted tenant,
      at least one arena launch a dispatch; p50/p99 and goodput printed;
+ 15. the training path (stablelm-1.6b at full width and depth, bf16,
+     random weights from a CUDA generator seeded 0): `Trainer.run` of 4
+     steps of (8, 4096) tokens (train_4k's sequence, its batch cut from
+     256 to 8, microbatches of 2, remat "dots"): finite losses, no
+     attention-kernel launch, step wall, tokens/s, peak memory, the
+     card's busy share of a step and the step's bound; `BlockAMCPrecond`
+     on the embedding's gradient at the reference's defaults - the
+     digital refresh (28 `block_inv` of 2048) against a float64 inverse
+     root, the analog refresh (28 programs, one arena launch each)
+     against the digital one within 0.05; a 2-layer float32 stablelm at
+     full width, gradients and one `make_train_step` on the card against
+     the host (1e-4 of max|g|, loss 1e-5), remat "dots" / "full" against
+     "none" (1e-6); a trainer saved at step 2 and resumed on the card at
+     host scale reproduces the uninterrupted losses (1e-6);
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -108,6 +123,7 @@ checkout of the repository.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 from functools import partial
 import statistics
@@ -1539,12 +1555,13 @@ def _flash_phase(dev):
     return stats
 
 
-def _device_busy_ms(fn):
+def _device_busy_ms(fn, top=0):
     """(host wall ms, device busy ms) of one fn() under torch.profiler:
     busy is the union of the card's kernel, copy and fill intervals in
     the trace, None if the trace holds no device event.  The profiler's
     own host cost inflates the wall time, so the idle share it gives is
-    an upper bound."""
+    an upper bound.  Third, the `top` operators with the most device
+    time of their own, as (name, calls, ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1562,7 +1579,19 @@ def _device_busy_ms(fn):
             busy, end = busy + b - a, b
         elif b > end:
             busy, end = busy + b - end, b
-    return wall, (busy / 1e3 if spans else None)
+    busy = busy / 1e3 if spans else None
+
+    def own(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    ops = [(e.key, e.count, own(e) / 1e3) for e in sorted(
+        prof.key_averages(), key=own, reverse=True)[:top]]
+    # the trace's events hold reference cycles (~33 objects an operator):
+    # left to the collector, phase 12's ~700k of them made a 1.3 s
+    # generation-2 pause inside phase 14's serving window
+    del prof, spans
+    gc.collect()
+    return wall, busy, ops
 
 
 def _lm_phase(dev):
@@ -1585,6 +1614,7 @@ def _lm_phase(dev):
                                                  Request)
     from repro_torch.models.serve_step import (make_decode_step,
                                                make_prefill_step)
+    from repro_torch.tree import tree_leaves
     cfg = get_config("glm4-9b")
     print(f"phase 12: LM serving, {cfg.name} full size ({cfg.n_layers} "
           f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} "
@@ -1594,8 +1624,8 @@ def _lm_phase(dev):
     t0 = time.perf_counter()
     params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
     print(f"  init_params: {n_params / 1e9:.3f} G parameters, "
           f"{n_bytes / 1e9:.2f} GB, {time.perf_counter() - t0:.2f} s")
     b, s, n_new, max_len = 4, 1024, 32, 1056
@@ -1648,7 +1678,7 @@ def _lm_phase(dev):
     profiled = {}
     for what, fn in (("prefill", lambda: prefill_step(
             params, {"tokens": prompts})), ("4 decode steps", four_steps)):
-        wall, busy = _device_busy_ms(fn)
+        wall, busy, _ = _device_busy_ms(fn)
         profiled[what] = dict(wall_ms=wall, busy_ms=busy)
         print(f"  torch.profiler, {what}: {wall:.1f} ms wall, device busy "
               + ("not measured (no device events in the trace)"
@@ -1711,6 +1741,328 @@ def _lm_phase(dev):
                           route_err=err, bf16_agree=agree)
 
 
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_SHAPE = dict(mode="train", seq_len=4096, global_batch=8,
+                   microbatch=2)   # train_4k's seq_len; its batch 256 -> 8
+TRAIN_STEPS = 4                    # the first is the warm-up
+TRAIN_LOSS_TOL = 1e-5   # card vs host loss, float32: sums reassociated
+TRAIN_GRAD_TOL = 1e-4   # card vs host gradients, of max|g| a leaf: the
+#                         same, through softmax and the backward
+REMAT_TOL = 1e-6        # remat "dots" / "full" vs "none" on the card, of
+#                         max|g|: recomputation repeats the same ops
+RESUME_TOL = 1e-6       # a resumed run's losses vs the uninterrupted run's
+PRECOND_F64_TOL = 1e-3  # digital inverse root (float32 Denman-Beavers over
+#                         block_inv GEMMs) vs a float64 eigh root, relative
+#                         Frobenius; the bf16 gradient adds one rounding
+PRECOND_ANALOG_TOL = 0.05  # analog vs digital preconditioned gradient, the
+#                            reference's acceptance (test_optim_runtime.py)
+
+
+def _rel_fro(x, ref):
+    return float(torch.linalg.norm((x - ref).double())
+                 / torch.linalg.norm(ref.double()))
+
+
+def _train_flops(cfg, n_params, tokens, seq_len):
+    """FLOPs of one step, as (the function's, the chunked path's).  The
+    function needs 6 N a token, plus causal attention's 2 S d a token a
+    layer (scores and p . v over the S / 2 keys a token sees on average)
+    times 3 for its forward and backward.  The chunked path does more:
+    4 S d a token a layer (all S keys, the mask applied after the
+    product) times 3, plus 1 for the recomputation under remat."""
+    d_attn = cfg.n_heads * cfg.head_dim
+    per_layer = seq_len * d_attn * tokens * cfg.n_layers
+    return (6 * n_params * tokens + 3 * 2 * per_layer,
+            6 * n_params * tokens + 4 * 4 * per_layer)
+
+
+def _train_phase(dev, root):
+    """Phase 15: the training path on the card.  stablelm-1.6b at full
+    width and depth (24 layers, d_model 2048, 32 heads x 64, d_ff 5632,
+    vocab 100352, bf16 parameters, float32 moments), random weights from
+    a generator seeded 0 on the card, trained by `Trainer.run` for
+    `steps` steps of (8, 4096) tokens from `SyntheticLM(seed=0)`, 4
+    microbatches of 2, remat "dots": losses finite, no attention-kernel
+    launch (the training route is the chunked path), step wall,
+    tokens/s, peak memory, busy share and the share of the step's bound.
+    Then the BlockAMC preconditioner on the embedding's gradient (one
+    microbatch of the trained model): digital and analog refreshes at the
+    reference's defaults, the digital inverse root against float64 and
+    the analog against the digital; a 2-layer float32 stablelm at full
+    width, its gradients and one `make_train_step` on the card against
+    the host, remat "dots" and "full" against "none"; and a trainer
+    resume on the card at `host_scale_config`.  Returns the phase's
+    stats."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import blockamc
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.hybrid import AnalogPreconditioner
+    from repro_torch.kernels import arena_mvm, flash_attention
+    from repro_torch.launch.train import host_scale_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.numerics import over
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.blockamc_precond import BlockAMCPrecond
+    from repro_torch.train.train_step import (TrainState, make_train_step,
+                                              value_and_grad)
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, **TRAIN_SHAPE)
+    steps = TRAIN_STEPS
+    tokens = run.global_batch * run.seq_len
+    print(f"phase 15: training, {cfg.name} full size ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} "
+          f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype} parameters, {run.moments_dtype} moments); "
+          f"({run.global_batch}, {run.seq_len}) tokens a step in "
+          f"{run.global_batch // run.microbatch} microbatches of "
+          f"{run.microbatch}, remat {run.remat!r}")
+    flash_attention.flash_attention.launches = 0
+    arena_mvm.arena_packed_apply.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, run, seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = list(tree_leaves(trainer.state.params))
+    n_params = sum(x.numel() for x in leaves)
+    print(f"  Trainer: {n_params / 1e9:.4f} G parameters, "
+          f"{sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} "
+          f"GB, state ready in {time.perf_counter() - t0:.2f} s")
+    hist = trainer.run(steps)
+    for i, (loss, dt) in enumerate(zip(hist["loss"], hist["dt"])):
+        print(f"  step {i}: loss {loss:.6f}, {dt:.4f} s (host clock)"
+              + (" warm-up" if i == 0 else ""))
+    if not all(np.isfinite(hist["loss"])):
+        _fail(f"non-finite training losses {hist['loss']}")
+    step_s = statistics.median(hist["dt"][1:])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = trainer.data.batch(steps)
+
+    def one_step():
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        float(metrics["loss"])
+    wall_ms, busy_ms, top_ops = _device_busy_ms(one_step, top=10)
+    flops, chunked_flops = _train_flops(cfg, n_params, tokens, run.seq_len)
+    bound_s = flops / BF16_FLOP_PER_S
+    chunked_s = chunked_flops / BF16_FLOP_PER_S
+    train_flash = flash_attention.flash_attention.launches
+    train_arena = arena_mvm.arena_packed_apply.launches
+    print(f"  steady step {step_s:.4f} s (median of steps 1-{steps - 1}), "
+          f"{tokens / step_s:.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB (max_memory_allocated)")
+    print(f"  torch.profiler, one step: {wall_ms:.1f} ms wall, device busy "
+          + ("not measured (no device events in the trace)"
+             if busy_ms is None else
+             f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%} busy)"))
+    for name, calls, ms in top_ops:
+        print(f"    {ms:10.1f} ms device, {calls:6d} calls  {name}")
+    print(f"  bound: {flops:.4e} FLOPs (6 N a token + causal attention "
+          f"6 S d a token a layer) at 989 TFLOP/s bf16 = {bound_s:.4f} s; "
+          f"the step reaches {bound_s / step_s:.1%} of it.  The chunked "
+          f"path's own work: {chunked_flops:.4e} FLOPs (attention 16 S d: "
+          f"all S keys, x3, +1 recomputed) = {chunked_s:.4f} s, "
+          f"{chunked_s / step_s:.1%} of the step")
+    print(f"  attention-kernel launches in the phase: {train_flash}; arena "
+          f"launches: {train_arena}")
+    if train_flash != 0:
+        _fail(f"training launched the flash kernel {train_flash} times: "
+              f"the route under autograd is the chunked path")
+    if train_arena != 0:
+        _fail(f"training launched the arena kernel {train_arena} times: "
+              f"the trainer runs no solver")
+
+    # -- the BlockAMC preconditioner on the embedding's gradient ----------
+    micro = {k: v[:run.microbatch] for k, v in trainer.data.batch(0).items()}
+    _, _, grads = value_and_grad(trainer.state.params, micro, cfg,
+                                 run.remat)
+    g = grads["embed"]
+    del grads, trainer, batch, micro, leaves
+    torch.cuda.empty_cache()
+    pre_d = BlockAMCPrecond()
+    pre_a = BlockAMCPrecond(use_analog=True)
+    stats0 = pre_d.update_stats({"embed": g}, pre_d.init({"embed": g}))
+    gram = stats0.gram["embed"]
+    d = gram.shape[0]
+    print(f"  BlockAMCPrecond on the embedding's gradient {tuple(g.shape)} "
+          f"{str(g.dtype).split('.')[-1]}: Gram {d}x{d}, damping "
+          f"{pre_d.damping}, leaf {pre_d.leaf_size}, {pre_d.db_iters} "
+          f"Denman-Beavers iterations ({2 * pre_d.db_iters} inverses)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_d = pre_d.refresh_inverses(stats0)
+    torch.cuda.synchronize()
+    digital_s = time.perf_counter() - t0
+    a64 = gram.double() + pre_d.damping * torch.eye(
+        d, dtype=torch.float64, device=dev)
+    evals, evecs = torch.linalg.eigh(a64)
+    root64 = (evecs * evals.rsqrt()) @ evecs.T
+    inv_err = _rel_fro(st_d.inv["embed"], root64)
+    out_d = pre_d.precondition({"embed": g}, st_d)["embed"]
+    out_err = _rel_fro(out_d, g.double() @ root64)
+    print(f"  digital refresh: {digital_s:.3f} s; G + lambda I: eigenvalues "
+          f"{float(evals.min()):.4e}..{float(evals.max()):.4e} (cond "
+          f"{float(evals.max() / evals.min()):.3e}); inverse root vs "
+          f"float64 eigh {inv_err:.3e}, preconditioned gradient "
+          f"({str(out_d.dtype).split('.')[-1]}) {out_err:.3e} (relative "
+          f"Frobenius; tolerance {PRECOND_F64_TOL:g} on the root)")
+    if not inv_err < PRECOND_F64_TOL:
+        _fail(f"digital inverse root {inv_err:.3e} from float64")
+    # a program of the refresh's first matrix, (G + lambda I) / c: its seed
+    # precond(eye) through the kernel (one launch) against the plain path
+    # on the same arena plan and against the finalized schedule, before
+    # any CG - at cond ~1 four CG iterations would hide a wrong seed
+    probe = pre_a.analog_cfg
+    a0 = gram + pre_a.damping * torch.eye(d, dtype=torch.float32, device=dev)
+    a0 = a0 / over(torch.trace(a0), d)
+    solver = blockamc.ProgrammedSolver.program(
+        a0, torch.Generator().manual_seed(0), probe, device=dev)
+    ap = solver.arena
+    n_tiles, n_terms = ap.program[1].shape
+    instance = arena_mvm.device_plan(dev, 1, ap.arena_size, d, n_tiles,
+                                     probe.array_size, n_terms)
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    arena_mvm.arena_packed_apply.launches = 0
+    seed = AnalogPreconditioner.from_solver(solver)(eye)
+    seed_launches = arena_mvm.arena_packed_apply.launches
+    if seed_launches != 1:
+        _fail(f"precond(eye) launched the arena kernel {seed_launches} times")
+    seed_err = _check_close(
+        f"precond(eye) at T={n_tiles}, K={d}: kernel vs plain arena path",
+        seed, blockamc.execute_arena(ap, eye, use_kernel=False).T,
+        KERNEL_REL_TOL)      # row j of precond(eye) answers column j
+    _check_close("precond(eye): kernel vs the finalized schedule",
+                 seed, AnalogPreconditioner(solver.finalized,
+                                            mode="reference")(eye),
+                 SOLVE_REL_TOL)
+    del solver, seed, eye, a0
+    arena_mvm.arena_packed_apply.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_a = pre_a.refresh_inverses(stats0)
+    torch.cuda.synchronize()
+    analog_s = time.perf_counter() - t0
+    analog_launches = arena_mvm.arena_packed_apply.launches
+    out_a = pre_a.precondition({"embed": g}, st_a)["embed"]
+    analog_err = _rel_fro(out_a, out_d)
+    print(f"  analog refresh (use_analog=True, {probe.array_size}x"
+          f"{probe.array_size} arrays, refine_iters {pre_a.refine_iters}): "
+          f"{analog_s:.3f} s, {analog_launches} arena launches; each "
+          f"program T={n_tiles} tiles, J={n_terms}, arena {ap.arena_size} "
+          f"rows, K={d} columns, instance {instance}; vs digital "
+          f"{analog_err:.3e} (tolerance {PRECOND_ANALOG_TOL:g})")
+    if analog_launches != 2 * pre_a.db_iters:
+        _fail(f"the analog refresh launched the arena kernel "
+              f"{analog_launches} times, expected {2 * pre_a.db_iters} "
+              f"(one a program)")
+    if not analog_err < PRECOND_ANALOG_TOL:
+        _fail(f"analog preconditioned gradient {analog_err:.3e} from the "
+              f"digital one")
+    del g, st_d, st_a, stats0, out_d, out_a, root64, a64, evecs
+    torch.cuda.empty_cache()
+
+    # -- 2 layers at full width in float32: the card against the host -----
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    run2 = RunConfig(model=cfg2, mode="train", seq_len=256, global_batch=2)
+    host = tr.init_params(torch.Generator().manual_seed(2), cfg2)
+    card = tree_map(lambda x: x.to(dev), host)
+    batch_h = SyntheticLM(cfg2, run2, seed=1, device="cpu").batch(0)
+    batch_c = {k: v.to(dev) for k, v in batch_h.items()}
+    t0 = time.perf_counter()
+    loss_c, _, g_c = value_and_grad(card, batch_c, cfg2, run2.remat)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, _, g_h = value_and_grad(host, batch_h, cfg2, run2.remat)
+    host_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+
+    def worst(got, want):     # the worst leaf's error, of its max|want|
+        return max(_max_err(a.cpu(), b.cpu())[1]
+                   for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    grad_err = worst(g_c, g_h)
+    print(f"  2-layer float32 {cfg2.name} (d_model {cfg2.d_model}), (2, 256) "
+          f"tokens, card vs host: loss {float(loss_c):.6f} vs "
+          f"{float(loss_h):.6f} ({loss_err:.2e} relative, tolerance "
+          f"{TRAIN_LOSS_TOL:g}); worst gradient leaf {grad_err:.2e} of its "
+          f"max|g| (tolerance {TRAIN_GRAD_TOL:g}); {card_s:.2f} s on the "
+          f"card, {host_s:.2f} s on the host")
+    if not loss_err <= TRAIN_LOSS_TOL:
+        _fail(f"card loss {loss_err:.2e} from the host's")
+    if not grad_err <= TRAIN_GRAD_TOL:
+        _fail(f"card gradients {grad_err:.2e} of max|g| from the host's")
+    remat_err = {}
+    g_none = value_and_grad(card, batch_c, cfg2, "none")[2]
+    for remat in ("dots", "full"):
+        g_r = g_c if remat == run2.remat else \
+            value_and_grad(card, batch_c, cfg2, remat)[2]
+        remat_err[remat] = worst(g_r, g_none)
+    print(f"  remat vs \"none\" on the card, worst leaf of max|g|: "
+          + ", ".join(f"{r} {e:.2e}" for r, e in remat_err.items())
+          + f" (tolerance {REMAT_TOL:g})")
+    if not max(remat_err.values()) <= REMAT_TOL:
+        _fail(f"remat changed the gradients: {remat_err}")
+    del g_c, g_h, g_none
+    opt = AdamW(lr=run2.learning_rate)
+    step2 = make_train_step(cfg2, run2, opt)
+    metrics = {}
+    for where, params, b in (("card", card, batch_c), ("host", host,
+                                                       batch_h)):
+        _, m = step2(TrainState(params, opt.init(params)), b)
+        metrics[where] = {k: float(v) for k, v in m.items()}
+    step_err = abs(metrics["card"]["loss"] - metrics["host"]["loss"]) / abs(
+        metrics["host"]["loss"])
+    print(f"  make_train_step, card vs host: loss {step_err:.2e} relative, "
+          f"grad_norm {metrics['card']['grad_norm']:.6f} vs "
+          f"{metrics['host']['grad_norm']:.6f}")
+    if not step_err <= TRAIN_LOSS_TOL:
+        _fail(f"the card's train step loss {step_err:.2e} from the host's")
+    del card, host
+    torch.cuda.empty_cache()
+
+    # -- a resume on the card at host scale --------------------------------
+    hcfg = host_scale_config(cfg)
+    hrun = RunConfig(model=hcfg, mode="train", seq_len=128, global_batch=8)
+    whole = Trainer(hcfg, hrun, device=dev).run(4)["loss"]
+    scratch = root / "artifacts"
+    scratch.mkdir(exist_ok=True)
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=scratch) as ckpt_dir:
+        Trainer(hcfg, hrun, ckpt_dir=ckpt_dir, ckpt_every=2,
+                device=dev).run(2)
+        again = Trainer(hcfg, hrun, ckpt_dir=ckpt_dir, ckpt_every=2,
+                        device=dev)
+        start = again.start_step
+        resumed = again.run(2)["loss"]
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[2:]))
+    print(f"  resume at host scale ({hcfg.n_layers} layers, d_model "
+          f"{hcfg.d_model}): saved at step 2, resumed at {start}; steps 3-4 "
+          f"{resumed} vs uninterrupted {whole[2:]} ({resume_err:.2e}, "
+          f"tolerance {RESUME_TOL:g})")
+    if start != 2 or not resume_err <= RESUME_TOL:
+        _fail("the resumed run does not reproduce the uninterrupted one")
+    return dict(losses=hist["loss"], step_dt=hist["dt"], step_s=step_s,
+                tokens_per_s=tokens / step_s, peak_gb=peak_gb,
+                profiled_wall_ms=wall_ms, busy_ms=busy_ms, top_ops=top_ops,
+                flops=flops, chunked_flops=chunked_flops,
+                bound_s=bound_s, bound_share=bound_s / step_s,
+                flash_launches=train_flash, arena_launches=train_arena,
+                precond=dict(
+                    digital_s=digital_s, analog_s=analog_s,
+                    analog_launches=analog_launches, seed_err=seed_err,
+                    inv_err=inv_err,
+                    out_err=out_err, analog_err=analog_err, d=d,
+                    cond=float(evals.max() / evals.min()),
+                    tiles=n_tiles, instance=instance),
+                card_vs_host=dict(loss_err=loss_err, grad_err=grad_err,
+                                  step_loss_err=step_err,
+                                  remat_err=remat_err),
+                resume_err=resume_err)
+
+
 def _print_ptxas(log):
     """Each kernel instance's registers, static shared memory and spills,
     from the compiler's `-Xptxas -v` report, under its name."""
@@ -1755,14 +2107,6 @@ def _print_smem(build):
           f"arena smem instance at the main path (S=704, T=23, J=3, "
           f"C=64, 1 column, 3 slots) {area(704, 23, 3, 64, 1, 3)} B, "
           f"16 columns {area(704, 23, 3, 64, 16, 3)} B")
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for val in tree.values():
-            yield from _leaves(val)
-    else:
-        yield tree
 
 
 def main() -> int:
@@ -2007,6 +2351,11 @@ def main() -> int:
     fleet_launches, fleet = _fleet_phase(dev, smi, root)
     print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 15. the training path and the BlockAMC preconditioner -------------
+    t0 = time.perf_counter()
+    train = _train_phase(dev, root)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -2040,7 +2389,11 @@ def main() -> int:
                                  in fleet_launches.items()
                                  if label != "faulted_engine"),
                              "async engine, faulted (phase 14)":
-                                 fleet_launches["faulted_engine"]},
+                                 fleet_launches["faulted_engine"],
+                             "stablelm-1.6b training (phase 15)":
+                                 train["arena_launches"],
+                             "BlockAMCPrecond analog refresh (phase 15)":
+                                 train["precond"]["analog_launches"]},
         "maintenance": {key: maint[key] for key in (
             "repair_ms", "program_ms", "calibration_s", "r_hat")},
         "fleet": fleet,
@@ -2115,9 +2468,12 @@ def main() -> int:
         "library_ms": st["library_ms"],
         "library_ratio": st["library_ratio"],
         "launches_by_path": {"glm4-9b Engine.generate (phase 12)":
-                                 lm_launches},
+                                 lm_launches,
+                             "stablelm-1.6b training (phase 15)":
+                                 train["flash_launches"]},
         "shapes": flash_stats,
         "lm": lm_stats,
+        "train": train,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,12 @@ def tree_map_with_key(fn: Callable[[str, Any], Any], tree):
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as a numpy array; bfloat16 tensors, which numpy lacks,
+    widened to float32 (exactly; either package's restore casts back to
+    the target leaf's dtype)."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

@@ -1,1 +1,3 @@
-"""Benchmark matrix generators of the paper, on `torch.Generator`s."""
+"""Data of the port: the paper's benchmark matrix generators on
+`torch.Generator`s (`matrices.py`) and the synthetic LM pipeline
+(`pipeline.py`)."""

@@ -40,8 +40,12 @@ tile-solver plan (`core/distributed.py`'s `DistPlan`) comes across as
 Language-model parameters and caches (`models/transformer.py`) come
 across as the reference's nested-dict pytree with numpy leaves
 (`lm_params_from_numpy`, `lm_cache_from_numpy`); the keys are the same on
-both sides.  A bfloat16 leaf (numpy's `ml_dtypes.bfloat16`, which
-`torch.from_numpy` refuses) travels as its 16-bit pattern.
+both sides.  A training state comes across as its parameters and the
+reference's `OptState` (step, m, v) with numpy leaves
+(`train_state_from_numpy`), a preconditioner state as the reference's
+`PrecondState` (gram, inv, step; `precond_state_from_numpy`).  A
+bfloat16 leaf (numpy's `ml_dtypes.bfloat16`, which `torch.from_numpy`
+refuses) travels as its 16-bit pattern.
 
 This module sees numpy and torch only.
 """
@@ -56,6 +60,9 @@ from repro_torch.core.blockamc import (BlockTarget, FlatPlan, LeafTarget,
                                        ProgrammedSolver)
 from repro_torch.core.distributed import DistPlan
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
+from repro_torch.optim.blockamc_precond import PrecondState
+from repro_torch.train.train_step import TrainState
 
 
 def _freeze(x):
@@ -163,3 +170,22 @@ def lm_cache_from_numpy(tree: dict, device="cuda") -> dict:
     """The port's decode cache on `device` from the reference's cache
     pytree with numpy leaves (same keys and layout)."""
     return _tree_from_numpy(tree, resolve_device(device))
+
+
+def train_state_from_numpy(params: dict, opt, device="cuda") -> TrainState:
+    """The port's TrainState on `device` from the reference's parameter
+    pytree and `OptState` (step, m, v), leaves as numpy."""
+    dev = resolve_device(device)
+    return TrainState(params=_tree_from_numpy(params, dev),
+                      opt=OptState(step=_tensor(opt.step, dev),
+                                   m=_tree_from_numpy(opt.m, dev),
+                                   v=_tree_from_numpy(opt.v, dev)))
+
+
+def precond_state_from_numpy(state, device="cuda") -> PrecondState:
+    """The port's PrecondState on `device` from the reference's
+    `PrecondState` (gram, inv, step), leaves as numpy."""
+    dev = resolve_device(device)
+    return PrecondState(gram=_tree_from_numpy(state.gram, dev),
+                        inv=_tree_from_numpy(state.inv, dev),
+                        step=_tensor(state.step, dev))

@@ -108,12 +108,13 @@ def _kernel_dtype(*tensors) -> torch.dtype:
     return torch.float32
 
 
-def _crossbar(launch, plain, v, gpos, gneg, **kw):
+def _crossbar(name, launch, plain, v, gpos, gneg, **kw):
     """The crossbar entries' dispatch: the plain version for a CPU tensor,
     else the kernel on float32 / bfloat16 copies where needed."""
     vdt, gdt = _kernel_dtype(v), _kernel_dtype(gpos, gneg)
     if v.device.type == "cpu":
         return plain(v, gpos, gneg, **kw)
+    _refuse_grad(name, v, gpos, gneg)
     if v.device.type != "cuda":
         raise ValueError(f"no crossbar kernel for device {v.device}")
     return launch(v.to(vdt).contiguous(),
@@ -125,9 +126,12 @@ def crossbar_mvm(v, gpos, gneg, *, g0: float, dac_bits=None,
                  adc_bits=None, fullscale: float = 1.0):
     """Differential crossbar MVM (see `kernels/crossbar_mvm.py`):
     v (B, C), gpos/gneg (R, C) -> (B, R) float32, any shapes; float32 or
-    bfloat16 in (any other type raises)."""
-    return _crossbar(_xbar.crossbar_mvm, _ref.crossbar_mvm_ref, v, gpos,
-                     gneg, g0=g0, dac_bits=dac_bits, adc_bits=adc_bits,
+    bfloat16 in (any other type raises).  On the card, tensors that
+    require grad are refused (the kernel runs outside autograd); the plain
+    version on the host is differentiable."""
+    return _crossbar("crossbar_mvm", _xbar.crossbar_mvm,
+                     _ref.crossbar_mvm_ref, v, gpos, gneg, g0=g0,
+                     dac_bits=dac_bits, adc_bits=adc_bits,
                      fullscale=fullscale)
 
 
@@ -135,7 +139,7 @@ def crossbar_mvm_batched(v, gpos, gneg, *, g0: float, dac_bits=None,
                          adc_bits=None, fullscale: float = 1.0):
     """The crossbar MVM over a stack of L physical arrays, one launch:
     v (L, B, C), gpos/gneg (L, R, C) -> (L, B, R) float32."""
-    return _crossbar(_xbar.crossbar_mvm_batched,
+    return _crossbar("crossbar_mvm_batched", _xbar.crossbar_mvm_batched,
                      _ref.crossbar_mvm_batched_ref, v, gpos, gneg, g0=g0,
                      dac_bits=dac_bits, adc_bits=adc_bits,
                      fullscale=fullscale)
@@ -144,10 +148,12 @@ def crossbar_mvm_batched(v, gpos, gneg, *, g0: float, dac_bits=None,
 def schur_update(a4, a3, w):
     """Fused A4 - A3 @ W (see `kernels/schur_gemm.py`): a4 (I, J),
     a3 (I, K), w (K, J) -> (I, J) float32, any shapes; float32 or
-    bfloat16 in (any other type raises)."""
+    bfloat16 in (any other type raises).  On the card, tensors that
+    require grad are refused, as the crossbar's are."""
     dtype, dev = _kernel_dtype(a4, a3, w), a4.device
     if dev.type == "cpu":
         return _ref.schur_update_ref(a4, a3, w)
+    _refuse_grad("schur_update", a4, a3, w)
     if dev.type != "cuda":
         raise ValueError(f"no Schur kernel for device {dev}")
     return _schur.schur_update(
@@ -162,7 +168,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
     On the CPU this is the kernel's function evaluated by the plain
     version on float32 copies, cast back to q's dtype (any D); on the card
-    the kernel, which takes D in (64, 128) and raises on any other.
+    the kernel, which takes D in (64, 128) and raises on any other, and
+    refuses tensors that require grad (`models/attention.py` routes a
+    differentiated attention to its chunked path).
     """
     for x in (q, k, v):
         if x.dtype not in _flash.DTYPES:
@@ -176,6 +184,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
                                         causal=causal).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    _refuse_grad("flash_attention", q, k, v)
 
     def ready(x):       # one dtype, contiguous, 16-byte aligned
         x = x.to(device=q.device, dtype=q.dtype).contiguous()

@@ -10,7 +10,6 @@ full glm4-9b takes about 19 GB in bfloat16); prompts from one seeded 1.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import time
 
@@ -18,28 +17,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import host_scale_config
 from repro_torch.models import transformer as tr
 from repro_torch.models.lm_engine import Engine
 
 log = logging.getLogger("repro_torch.launch.serve")
-
-
-def host_scale_config(cfg):
-    """Shrink an arch config to a ~CPU-trainable size, same topology (the
-    reference's `repro/launch/train.py::host_scale_config`)."""
-    return dataclasses.replace(
-        cfg,
-        n_layers=min(cfg.n_layers, 4 if not cfg.layer_pattern else
-                     2 * len(cfg.layer_pattern)),
-        d_model=256, d_ff=512 if cfg.d_ff else 0,
-        n_heads=4 if cfg.n_heads else 0,
-        kv_heads=min(cfg.kv_heads, 2) if cfg.kv_heads else 0,
-        head_dim=64, vocab=min(cfg.vocab, 2048),
-        n_experts=min(cfg.n_experts, 4), local_window=64,
-        lru_width=256 if cfg.lru_width else None,
-        ssm_chunk=32,
-        param_dtype="float32", compute_dtype="float32",
-    )
 
 
 def main(argv=None):

@@ -7,25 +7,36 @@ The route of full-causal attention.  `attention`, `attention_prefill`
 take `use_flash`:
 
 - None (the default): the flash route where it has the case - no
-  sliding window, float32 or bfloat16 activations and, for CUDA tensors,
-  a head dim in `flash_attention.HEAD_DIMS` (64, 128) - else the
-  q-chunked path `_chunked_attend`, which, as the reference's default,
-  takes any head dim, dtype and batch.  The flash route is
-  `kernels.ops.flash_attention`: the hand-written kernel for CUDA tensors
-  (any batch x heads), its plain version, which takes any head dim, for
-  CPU tensors.
+  sliding window, float32 or bfloat16 activations, no autograd recording
+  through q, k or v and, for CUDA tensors, a head dim in
+  `flash_attention.HEAD_DIMS` (64, 128) - else the q-chunked path
+  `_chunked_attend`, which, as the reference's default, takes any head
+  dim, dtype and batch.  The flash route is `kernels.ops.flash_attention`:
+  the hand-written kernel for CUDA tensors (any batch x heads), its plain
+  version, which takes any head dim, for CPU tensors.
 - False: `_chunked_attend`.
 - True: the flash route; raises where it lacks the case.
 
+The kernel writes its output outside autograd, and the route is decided
+alike on the card and on the host: whenever autograd records through q,
+k or v (`torch.is_grad_enabled()` and one of them requires grad), the
+default is `_chunked_attend`, which is differentiable and is the
+reference's training route (its `loss_fn` never sets `use_flash`, and
+its kernel is forward-only).  Under `torch.no_grad()` or
+`torch.inference_mode()` - prefill, decode, serving - the default is the
+kernel.  `use_flash=True` under grad recording raises, and so does the
+kernel wrapper on the card for a tensor that requires grad.
+
 This is the one place the port's default differs from the reference,
 whose `forward` and `prefill` never set `use_flash` and so always take
-the chunked path.  The port routes them through the kernel on the card
-because the kernel's own docstring names that its job on the accelerator
-("replaces the q-chunked jnp attention path ... for the prefill cells"),
-and `tests/test_kernels.py::test_flash_attention_in_model_layer` holds
-the two routes equal (2e-4 in float32).  The flash route assumes the
-positions are 0..S-1 (causal by index), as the reference's `use_flash`
-route does; `forward` and `prefill` always pass those.
+the chunked path.  The port routes inference through the kernel on the
+card because the kernel's own docstring names that its job on the
+accelerator ("replaces the q-chunked jnp attention path ... for the
+prefill cells"), and
+`tests/test_kernels.py::test_flash_attention_in_model_layer` holds the
+two routes equal (2e-4 in float32).  The flash route assumes
+the positions are 0..S-1 (causal by index), as the reference's
+`use_flash` route does; `forward` and `prefill` always pass those.
 
 Rounding in bfloat16 differs between the routes, and that is not a bug:
 `_chunked_attend` casts the softmax weights to bfloat16 before p . v (its
@@ -121,21 +132,28 @@ def _chunked_attend(q, k, v, positions, cfg: ModelConfig,
 
 
 def _flash_route(use_flash: Optional[bool], window: Optional[int],
-                 head_dim: int, dtype: torch.dtype, on_card: bool) -> bool:
+                 head_dim: int, dtype: torch.dtype, on_card: bool,
+                 grad: bool = False) -> bool:
     """Whether causal attention takes the flash route (see the module
     docstring) for activations of `dtype` and `head_dim`, on the card or
-    on the host."""
+    on the host, with autograd recording through them (`grad`) or not."""
     missing = ("sliding window" if window is not None else
                f"{dtype} (only float32 or bfloat16)"
                if dtype not in kflash.DTYPES else
                f"head dim {head_dim} on the card (only {kflash.HEAD_DIMS})"
-               if on_card and head_dim not in kflash.HEAD_DIMS else None)
+               if on_card and head_dim not in kflash.HEAD_DIMS else
+               "gradient (it runs outside autograd)" if grad else None)
     if use_flash is None:
         return missing is None
     if use_flash and missing is not None:
         raise ValueError(f"use_flash=True: the flash kernel takes no "
                          f"{missing}")
     return bool(use_flash)
+
+
+def _records_grad(*tensors) -> bool:
+    """Whether autograd records through any of `tensors`."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def _flash_attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -166,7 +184,8 @@ def attention(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     `use_flash` picks the route (module docstring).
     """
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda):
+    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda,
+                    _records_grad(q, k, v)):
         out = _flash_attend(q, k, v, cfg)
     else:
         out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)
@@ -186,7 +205,8 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda):
+    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda,
+                    _records_grad(q, k, v)):
         out = _flash_attend(q, k, v, cfg)
     else:
         out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)

@@ -7,8 +7,10 @@ homogeneous repeats are stacked on a leading axis under `params["blocks"]`
 (and `cache["blocks"]`), and the pattern's remainder layers unrolled as
 `rem{r}`, so that `interop.lm_params_from_numpy` maps one onto the other
 key for key.  The reference scans over the stacked axis; the port runs a
-Python loop over it, indexing views.  Recurrent (`rec`), SSM (`ssm`) and
-MoE blocks raise NotImplementedError (ROADMAP item 13), and with them
+Python loop over it, over views of the stacked tensors (`forward` takes
+them with one `unbind` a tensor, whose backward is one `stack`).
+Recurrent (`rec`), SSM (`ssm`) and MoE blocks raise NotImplementedError
+(ROADMAP.md queue 1, the language-model blocks), and with them
 the local-attention window of hybrid patterns: `prefill`, `decode_step`
 and `init_cache` run full causal attention, and `forward` takes a window
 only from `window_override`.
@@ -22,23 +24,38 @@ up, down).  Norm weights are zeros.
 
 `use_flash` on `block_forward`, `forward`, `block_prefill` and `prefill`
 routes full-causal attention (see `models/attention.py`): by default
-through the hand-written flash kernel for CUDA tensors.  Decode updates
-the cache in place and returns it.
+through the hand-written flash kernel for CUDA tensors, and through the
+chunked path wherever autograd records.  Decode updates the cache in
+place and returns it.
+
+`remat` ("none" | "dots" | "full") rematerialises each repeat of the
+stacked unit in `forward`, as the reference's `jax.checkpoint` of its
+scan body (the remainder layers are not rematerialised there either),
+with `torch.utils.checkpoint` (`use_reentrant=False`).  "full" saves
+nothing but the repeat's inputs; "dots" is the reference's
+`checkpoint_dots_with_no_batch_dims`: the outputs of the projections'
+matmuls (`aten.mm`, `aten.addmm`) are saved and everything else,
+the attention's batched score products (`aten.bmm`) included, is
+recomputed in the backward.  Remat changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (mm, rms_norm, softcap, swiglu_ffn,
                                        swiglu_ffn_init)
+from repro_torch.tree import tree_map
 
-_NOT_PORTED = ("{} blocks are not ported yet (ROADMAP item 13: "
-               "models/{}.py); the port runs the dense family")
+_NOT_PORTED = ("{} blocks are not ported yet (ROADMAP.md queue 1, the "
+               "language-model blocks: models/{}.py); the port runs the "
+               "dense family")
 
 
 def _unported(kind: str, is_moe: bool = False):
@@ -65,16 +82,9 @@ def _dtype(name: str):
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _map(fn, tree):
-    """fn over every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {key: _map(fn, val) for key, val in tree.items()}
-    return fn(tree)
-
-
 def _index(tree, r: int):
     """Repeat r of a stacked tree: views, no copies."""
-    return _map(lambda x: x[r], tree)
+    return tree_map(lambda x: x[r], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +178,9 @@ def _stack_into(dst: Optional[Dict], src: Dict, r: int, n: int) -> Dict:
     """Write repeat r of a tree into the stacked tree `dst` (allocated on
     the first repeat), so that the whole stack never exists twice."""
     if dst is None:
-        dst = _map(lambda x: torch.empty((n,) + tuple(x.shape),
-                                         dtype=x.dtype, device=x.device), src)
+        dst = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                             dtype=x.dtype, device=x.device),
+                       src)
 
     def put(d, s):
         for key, val in s.items():
@@ -229,31 +240,62 @@ def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Forward (prefill / evaluation)
 # ---------------------------------------------------------------------------
 
+REMAT = ("none", "dots", "full")
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the projections' matmul outputs, recompute the rest."""
+    if op in _SAVED_BY_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """`fn` run under the checkpoint `remat` names (module docstring)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward(params: Dict, cfg: ModelConfig, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             window_override: Optional[int] = None,
             remat: str = "none", use_flash: Optional[bool] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, Vpad), aux_loss scalar).  `remat` takes only
-    "none": rematerialisation belongs to training, not ported yet."""
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r}: training is not "
-                                  f"ported yet (ROADMAP item 13)")
+    """Returns (logits (B, S, Vpad), aux_loss scalar).  `remat`
+    rematerialises each stacked repeat (module docstring)."""
     x = _embed(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     unit, n_rep, n_rem = stack_layout(cfg)
     _check_ported(unit)
+
+    def super_fwd(lp, x, aux):
+        for i, (kind, is_moe) in enumerate(unit):
+            x, a = block_forward(lp[f"b{i}"], x, positions, cfg, kind,
+                                 is_moe, window_override,
+                                 use_flash=use_flash)
+            aux = aux + a
+        return x, aux
+
+    body = _maybe_remat(super_fwd, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = []
-    for r in range(n_rep):
-        lp = _index(params["blocks"], r)
-        layers += [(lp[f"b{i}"],) + u for i, u in enumerate(unit)]
-    layers += [(params[f"rem{r}"],) + unit[r] for r in range(n_rem)]
-    for lp, kind, is_moe in layers:
-        x, a = block_forward(lp, x, positions, cfg, kind, is_moe,
-                             window_override, use_flash=use_flash)
+    if n_rep > 0:
+        repeats = tree_map(lambda t: t.unbind(0), params["blocks"])
+        for r in range(n_rep):
+            x, aux = body(tree_map(lambda t: t[r], repeats), x, aux)
+    for r in range(n_rem):
+        kind, is_moe = unit[r]
+        x, a = block_forward(params[f"rem{r}"], x, positions, cfg, kind,
+                             is_moe, window_override, use_flash=use_flash)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -329,7 +371,7 @@ def init_cache(batch: int, cache_len: int, cfg: ModelConfig,
 
     cache: Dict[str, Any] = {}
     if n_rep > 0:
-        cache["blocks"] = {f"b{i}": _map(
+        cache["blocks"] = {f"b{i}": tree_map(
             lambda x: torch.zeros((n_rep,) + tuple(x.shape), dtype=x.dtype,
                                   device=x.device), one(kind))
             for i, (kind, _) in enumerate(unit)}

@@ -554,6 +554,24 @@ def test_kernel_wrappers_refuse_tensors_that_require_grad_on_the_card(cuda):
     with pytest.raises(ValueError, match="outside autograd"):
         ops.block_tridiag_solve(minv, rhs, gw=1.0)
     assert arena_mvm.arena_packed_apply.launches == before
+    # the other four wrappers refuse on the card too, before any launch
+    counters = [crossbar_mvm.crossbar_mvm, crossbar_mvm.crossbar_mvm_batched,
+                schur_gemm.schur_update, flash_attention.flash_attention]
+    launches = [f.launches for f in counters]
+    v = torch.rand(4, 8, device=cuda)
+    g = torch.rand(3, 8, device=cuda)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.crossbar_mvm(v.requires_grad_(), g, g, g0=G0)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.crossbar_mvm_batched(v.detach()[None], g[None].requires_grad_(),
+                                 g[None], g0=G0)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.schur_update(torch.rand(8, 8, device=cuda),
+                         g.T.contiguous().requires_grad_(), g)
+    q = torch.rand(2, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.flash_attention(q, q.clone().requires_grad_(), q)
+    assert [f.launches for f in counters] == launches
 
 
 @pytest.mark.cuda
@@ -713,6 +731,146 @@ def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     assert flash_attention.flash_attention.launches == \
         before + 2 * cfg.n_layers
     scaled_close(full[:, -1].cpu(), logits.cpu(), 2e-4)
+
+
+@pytest.mark.cuda
+def test_lm_gradient_on_the_card_matches_the_chunked_path(cuda):
+    """A gradient through `transformer.forward` on the card with the
+    default route equals the chunked path's for every leaf, wq, wk and wv
+    included: the route takes the chunked path whenever autograd records
+    (the kernel writes outside autograd, so its route would leave the
+    projections without a gradient).  No flash launch while it records.
+    2-layer float32, glm4-9b's layout (grouped KV heads of dim 128, so
+    the kernel has the case) at a narrower width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+
+    def tree_map(fn, tree):     # the parent tree has no repro_torch.tree
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return fn(tree)
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=2,
+                              d_model=512, n_heads=8, kv_heads=2,
+                              head_dim=128, d_ff=1024, vocab=1000,
+                              param_dtype="float32", compute_dtype="float32")
+    params = tr.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    grads = {}
+    before = flash_attention.flash_attention.launches
+    for use_flash in (None, False):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        logits, _ = tr.forward(leaves, cfg, tokens=toks, use_flash=use_flash)
+        (logits.float().square().mean()).backward()
+        grads[use_flash] = tree_map(lambda p: p.grad, leaves)
+    for name in ("wq", "wk", "wv", "wo"):
+        g = grads[None]["blocks"]["b0"]["mix"][name]
+        assert g is not None and float(g.abs().max()) > 0, name
+
+    def pairs(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                yield from pairs(a[k], b[k])
+        else:
+            yield a, b
+    for got, want in pairs(grads[None], grads[False]):
+        scaled_close(got.cpu(), want.cpu(), 1e-4)
+    assert flash_attention.flash_attention.launches == before
+    # the training loss's gradient through the default route, likewise
+    from repro_torch.train.train_step import value_and_grad
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    _, _, g_train = value_and_grad(params, batch, cfg, "dots")
+    assert float(g_train["blocks"]["b0"]["mix"]["wk"].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_host(cuda):
+    """One float32 `make_train_step` (two microbatches, remat "dots") on
+    the card against the same step on the host from the same parameters:
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    max|g| (TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              value_and_grad)
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2,
+                              d_model=256, n_heads=4, kv_heads=4,
+                              d_ff=512, vocab=1000, param_dtype="float32",
+                              compute_dtype="float32")
+    run = RunConfig(model=cfg, mode="train", seq_len=128, global_batch=4,
+                    microbatch=2)
+    state, opt = init_train_state(torch.Generator().manual_seed(0), cfg,
+                                  run, AdamW(lr=1e-3))
+    batch = SyntheticLM(cfg, run, seed=0, device="cpu").batch(0)
+    on_card = tree_map(lambda x: x.to(cuda), state.params)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    loss_h, _, g_h = value_and_grad(state.params, batch, cfg, "dots")
+    loss_c, _, g_c = value_and_grad(on_card, card_batch, cfg, "dots")
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+
+    def pairs(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                yield from pairs(a[k], b[k])
+        else:
+            yield a, b
+    for got, want in pairs(g_c, g_h):
+        scaled_close(got.cpu(), want, 1e-4)
+    step = make_train_step(cfg, run, opt)
+    _, m_h = step(state, batch)
+    card_state = type(state)(on_card, type(state.opt)(
+        state.opt.step.to(cuda), tree_map(lambda x: x.to(cuda), state.opt.m),
+        tree_map(lambda x: x.to(cuda), state.opt.v)))
+    _, m_c = step(card_state, card_batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_c[key]) - float(m_h[key])) <= \
+            1e-5 * abs(float(m_h[key])), key
+
+
+@pytest.mark.cuda
+def test_analog_preconditioner_is_one_arena_launch_a_program(
+        cuda, monkeypatch):
+    """`BlockAMCPrecond(use_analog=True)` on the card: every inverse of
+    the Denman-Beavers refresh programs a uniform plan and seeds its CG
+    with one arena launch (analog_precond=False), so a refresh launches
+    2 * db_iters times; each seed precond(eye) equals the plain arena path
+    on the same plan (1e-5 of max|x|: CG would hide a wrong seed); the
+    result matches the digital refresh."""
+    from repro_torch.optim import blockamc_precond
+    from repro_torch.optim.blockamc_precond import BlockAMCPrecond
+    seeds = []
+
+    class Recorded(AnalogPreconditioner):
+        def __call__(self, v):
+            out = super().__call__(v)
+            seeds.append((self.aplan, v, out))
+            return out
+
+    monkeypatch.setattr(blockamc_precond, "AnalogPreconditioner", Recorded)
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(512, 128, generator=gen).to(cuda)
+    outs = []
+    for analog in (False, True):
+        pre = BlockAMCPrecond(damping=5e-2, db_iters=3, use_analog=analog,
+                              refine_iters=8)
+        state = pre.update_stats({"w": g}, pre.init({"w": g}))
+        before = arena_mvm.arena_packed_apply.launches
+        state = pre.refresh_inverses(state)
+        launches = arena_mvm.arena_packed_apply.launches - before
+        assert launches == (2 * pre.db_iters if analog else 0)
+        outs.append(pre.precondition({"w": g}, state)["w"])
+    assert len(seeds) == 2 * pre.db_iters
+    for aplan, eye, seed in seeds:        # row j answers column j
+        plain = blockamc.execute_arena(aplan, eye.T, use_kernel=False).T
+        scaled_close(seed.cpu(), plain.cpu(), 1e-5)
+    rel = float(torch.linalg.norm(outs[1] - outs[0])
+                / torch.linalg.norm(outs[0]))
+    assert rel < 0.05
 
 
 # ---------------------------------------------- the serving stack ---------

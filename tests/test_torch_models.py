@@ -37,12 +37,13 @@ from repro.models import transformer as jtr
 from repro.models.lm_engine import Engine as JEngine
 from repro_torch import interop
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.launch.serve import host_scale_config
+from repro_torch.launch.train import host_scale_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm_scheduler as tsched
 from repro_torch.models import transformer as ttr
 from repro_torch.models.lm_engine import Engine
+from repro_torch.tree import tree_map
 from tests.conftest import reduce_cfg
 
 TOL = 2e-4
@@ -384,17 +385,53 @@ def test_reset_slots_matches(model):
 def test_unported_block_kinds_raise(arch):
     cfg = reduce_cfg(j_get_config(arch))
     tcfg = get_config(arch).__class__(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         ttr.init_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         ttr.init_cache(1, 4, tcfg, dtype=torch.float32, device="cpu")
 
 
 def test_remat_other_than_none_raises(model):
+    """"none", "dots" and "full" are the reference's remat modes (the
+    training tests hold all three to it); any other raises."""
     _, tcfg, _, tparams = model
-    with pytest.raises(NotImplementedError, match="training"):
-        ttr.forward(tparams, tcfg, tokens=torch.zeros((1, 4), dtype=torch.long),
-                    remat="dots")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for remat in ("dots", "full"):
+        logits, _ = ttr.forward(tparams, tcfg, tokens=toks, remat=remat)
+        assert torch.equal(logits, ttr.forward(tparams, tcfg,
+                                               tokens=toks)[0])
+    with pytest.raises(ValueError, match="remat"):
+        ttr.forward(tparams, tcfg, tokens=toks, remat="offload")
+
+
+def test_default_route_takes_the_chunked_path_under_autograd(model,
+                                                            monkeypatch):
+    """The default route never reaches the flash wrapper while autograd
+    records through q, k or v (its kernel runs outside autograd, on the
+    card as here), and reaches it once a layer under no_grad;
+    use_flash=True under grad recording raises."""
+    _, tcfg, _, tparams = model
+    calls = []
+    flash = tattn.kops.flash_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return flash(*args, **kw)
+    monkeypatch.setattr(tattn.kops, "flash_attention", counted)
+    toks = torch.from_numpy(_tokens().astype(np.int64))
+    diff = {k: v for k, v in tparams.items()}
+    diff["blocks"] = tree_map(lambda p: p.detach().requires_grad_(),
+                              tparams["blocks"])
+    logits, _ = ttr.forward(diff, tcfg, tokens=toks)
+    logits.sum().backward()
+    assert len(calls) == 0
+    assert diff["blocks"]["b0"]["mix"]["wq"].grad.abs().max() > 0
+    with torch.no_grad():
+        kernel_route, _ = ttr.forward(diff, tcfg, tokens=toks)
+    assert len(calls) == tcfg.n_layers
+    _close(kernel_route, logits.detach())
+    with pytest.raises(ValueError, match="gradient"):
+        ttr.forward(diff, tcfg, tokens=toks, use_flash=True)
 
 
 def test_serve_launcher_runs_on_the_host():
