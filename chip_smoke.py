@@ -9,9 +9,11 @@ port's paths at full width, checking that they went through the kernels:
 the paper's program-once / solve-many serving flow, the Fig. 9
 interconnect study under the exact nodal wire model, the kernel bench's
 rows, the example's path (`examples/solve_linear_system.py`), the
-language-model serving path (glm4-9b prefill and decode) and the training
-path with the BlockAMC preconditioner (stablelm-1.6b).  Phases
-(every check raises; nothing is caught):
+language-model serving path (glm4-9b prefill and decode), the training
+path with the BlockAMC preconditioner (stablelm-1.6b), the Monte-Carlo
+mesh (the `*_sharded` solvers on a one-rank NCCL group) and the MoE,
+RG-LRU and SSD model families.  Phases (every check raises; nothing is
+caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
   2. build the kernels (one nvcc per source, in parallel), with each
@@ -114,6 +116,27 @@ path with the BlockAMC preconditioner (stablelm-1.6b).  Phases
      the host (1e-4 of max|g|, loss 1e-5), remat "dots" / "full" against
      "none" (1e-6); a trainer saved at step 2 and resumed on the card at
      host scale reproduces the uninterrupted losses (1e-6);
+ 16. the Monte-Carlo mesh on a one-rank NCCL group (`make_mc_mesh`):
+     Fig. 7's sweep at its largest size (n=512, one stage, 256x256
+     arrays, sigma 0.05, 40 simulations) through
+     `solve_batched_sharded(mode="fused")`, one arena launch, against
+     `solve_batched` on the same generators; Fig. 8's packed fleet (16
+     tenants x 8 rhs) through `execute_arena_packed_sharded`, one launch,
+     against `execute_arena_packed`; `solve_refined_batched_sharded` on 8
+     keys at n=256 (float64 GMRES), every column converged, against
+     `solve_refined_batched`; the group destroyed after;
+ 17. the MoE, RG-LRU and SSD families, seeded random bf16 weights, each
+     model freed before the next: recurrentgemma-2b at full size serving
+     a (2, 3072) prompt (past its 2048-token window) and 32 greedy tokens
+     with no flash launch; mamba2-130m at full size serving phase 12's
+     traffic, training 4 steps of (8, 4096) tokens (microbatches of 2,
+     remat "dots") and, at 2 layers in float32, its loss and gradients
+     card against host (1e-5, 1e-4 of max|g|); phi3.5-moe at full width
+     and 16 of its 32 layers (the 32 do not fit 80 GB) serving phase 12's
+     traffic with one flash launch a layer of the prefill, the capacity
+     drops counted, and a 2-layer float32 route check (2e-4 of
+     max|logit|); prefill wall, decode ms a step, peak memory and busy
+     share of each;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -2063,6 +2086,326 @@ def _train_phase(dev, root):
                 resume_err=resume_err)
 
 
+MC_SIMS = 40            # the paper's "40 random simulations" (Fig. 7)
+MC_REFINED_TOL = 1e-6   # refined sweep, sharded vs unsharded, of max|x|:
+#                         both converge to a 1e-10 residual in float64
+
+
+def _mc_mesh_phase(dev):
+    """Phase 16: the Monte-Carlo mesh on the card - a one-rank NCCL group
+    (`launch.mesh.make_mc_mesh`) under the three `*_sharded` solvers:
+    Fig. 7's sweep at its largest size (`benchmarks/fig7_variation.py`:
+    n=512 Wishart, one stage, 256x256 arrays, sigma=0.05, 40 simulations)
+    through `solve_batched_sharded(mode="fused")`, one arena launch, held
+    to `solve_batched` on the same generators; Fig. 8's packed fleet
+    (n=256, two stages, 64x64, 16 tenants x 8 rhs) through
+    `execute_arena_packed_sharded`, one launch, held to
+    `execute_arena_packed`; `solve_refined_batched_sharded` on 8 keys at
+    n=256 (float64 GMRES, tol 1e-10), every column converged, held to
+    `solve_refined_batched`.  The group is destroyed at the end.
+    Returns the arena launches of each sharded call."""
+    import torch.distributed as dist
+    from repro_torch.core import blockamc
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.core.metrics import relative_error
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.matrices import random_rhs, wishart
+    from repro_torch.hybrid import (solve_refined_batched,
+                                    solve_refined_batched_sharded)
+    from repro_torch.kernels import arena_mvm
+    from repro_torch.launch.mesh import make_mc_mesh
+    if dist.is_initialized():
+        _fail("a process group exists before phase 16")
+    mesh = make_mc_mesh(device=dev)
+    print(f"phase 16: the Monte-Carlo mesh on a one-rank "
+          f"{dist.get_backend()} group, mesh {mesh}")
+    launches = {}
+
+    def sharded(what, fn):
+        """fn() with the arena counter set to 0 just before, read after."""
+        arena_mvm.arena_packed_apply.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[what] = arena_mvm.arena_packed_apply.launches
+        return out, wall
+
+    data = torch.Generator().manual_seed(77)
+    n = 512
+    cfg = AnalogConfig(array_size=256, nonideal=NonidealConfig(sigma=0.05))
+    a, b = wishart(data, n, device=dev), random_rhs(data, n, device=dev)
+
+    def gens():
+        return [torch.Generator().manual_seed(100 + i)
+                for i in range(MC_SIMS)]
+    xs, wall = sharded("Fig. 7 sweep", lambda: blockamc.solve_batched_sharded(
+        a, b, gens(), cfg, stages=1, mesh=mesh, mode="fused"))
+    want = blockamc.solve_batched(a, b, gens(), cfg, stages=1, mode="fused")
+    err = _check_close(f"Fig. 7 sweep (n={n}, 256x256, one stage, "
+                       f"{MC_SIMS} simulations) sharded vs solve_batched",
+                       xs, want, SOLVE_REL_TOL)
+    paper = relative_error(torch.linalg.solve(a.double(), b.double()),
+                           xs.double())
+    print(f"  solve_batched_sharded: {launches['Fig. 7 sweep']} arena "
+          f"launches, {wall:.3f} s host wall (programming included); "
+          f"median paper metric {float(paper.median()):.4f} over "
+          f"{MC_SIMS} simulations")
+    if tuple(xs.shape) != (MC_SIMS, n) or launches["Fig. 7 sweep"] != 1:
+        _fail(f"the sharded sweep gave shape {tuple(xs.shape)} in "
+              f"{launches['Fig. 7 sweep']} launches (expected 1)")
+
+    n, tenants, k = 256, 16, 8
+    cfg = AnalogConfig(array_size=64, nonideal=NonidealConfig(sigma=0.05))
+    As = torch.stack([wishart(data, n, device=dev) for _ in range(tenants)])
+    pp = blockamc.program_packed(
+        As, [torch.Generator().manual_seed(i) for i in range(tenants)], cfg,
+        2, device=dev)
+    bs = torch.stack([torch.stack([random_rhs(data, n, device=dev)
+                                   for _ in range(k)], dim=1)
+                      for _ in range(tenants)])
+    xs, wall = sharded("packed fleet", lambda:
+                       blockamc.execute_arena_packed_sharded(pp, bs,
+                                                             mesh=mesh))
+    _check_close("packed fleet (16 tenants x 8 rhs) sharded vs "
+                 "execute_arena_packed", xs,
+                 blockamc.execute_arena_packed(pp, bs), SOLVE_REL_TOL)
+    print(f"  execute_arena_packed_sharded: {launches['packed fleet']} "
+          f"arena launches, {wall * 1e3:.3f} ms host wall (first call)")
+    if launches["packed fleet"] != 1:
+        _fail(f"the sharded fleet launched {launches['packed fleet']} times")
+
+    a = wishart(data, n, device=dev).double()
+    b = torch.stack([random_rhs(data, n, device=dev) for _ in range(4)],
+                    dim=1).double()
+    kw = dict(stages=2, method="gmres", tol=1e-10, maxiter=400, restart=32,
+              device=dev)
+
+    def keys():
+        return [torch.Generator().manual_seed(200 + i) for i in range(8)]
+    res, wall = sharded("refined sweep", lambda: solve_refined_batched_sharded(
+        a, b, keys(), cfg, mesh=mesh, **kw))
+    one = solve_refined_batched(a, b, keys(), cfg, **kw)
+    err_r = _check_close("refined sweep (8 keys, n=256) sharded vs "
+                         "solve_refined_batched", res.x, one.x,
+                         MC_REFINED_TOL)
+    print(f"  solve_refined_batched_sharded: {launches['refined sweep']} "
+          f"arena launches, {wall:.3f} s host wall; GMRES iterations "
+          f"{int(res.iters.min())}-{int(res.iters.max())} (unsharded "
+          f"{int(one.iters.min())}-{int(one.iters.max())}), worst residual "
+          f"{float(res.resnorm.max()):.2e}")
+    if not bool(res.converged.all()):
+        _fail("the sharded refined sweep did not converge on every column")
+    dist.destroy_process_group()
+    return launches, dict(sweep_err=err, refined_err=err_r)
+
+
+LM_SERVED = (          # (arch, layers kept, batch, prompt, new tokens)
+    ("recurrentgemma-2b", None, 2, 3072, 32),   # prompt > local_window 2048
+    ("mamba2-130m", None, 4, 1024, 32),         # phase 12's traffic
+    ("phi3.5-moe-42b-a6.6b", 16, 4, 1024, 32),  # all 32 do not fit 80 GB
+)
+
+
+def _serve_lm(dev, smi, arch, layers, b, s, n_new):
+    """Serve one model at full width on the card with seeded random
+    weights: `Engine.generate` of n_new greedy tokens after a (b, s)
+    prompt, prefill wall, decode ms a step, peak memory and the device's
+    busy share; flash launches counted over the generate.  Returns
+    (cfg, params, stats); the caller frees the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.lm_engine import Engine
+    from repro_torch.models.serve_step import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    cut = "" if layers is None else \
+        f", depth cut from {cfg.n_layers} to {layers} layers"
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} layers{cut}, d_model "
+          f"{cfg.d_model}, pattern {tr.stack_layout(cfg)[0]}, "
+          f"{n_params / 1e9:.4f} G parameters, {n_bytes / 1e9:.2f} GB "
+          f"{cfg.param_dtype}, init {time.perf_counter() - t0:.2f} s")
+    max_len = s + n_new
+    prompts = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    engine = Engine(cfg, params, max_len=max_len)
+    engine.generate(prompts, 2)                           # warm-up
+    torch.cuda.synchronize()
+    flash_attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    ids = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    flash = flash_attention.flash_attention.launches
+    if tuple(ids.shape) != (b, n_new) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab)).all()):
+        _fail(f"{cfg.name}: ids of shape {tuple(ids.shape)} outside "
+              f"[0, {cfg.vocab})")
+    prefill_step = make_prefill_step(cfg, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, cache = prefill_step(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_ms = (gen_wall - prefill_s) / n_new * 1e3
+    dropped = None
+    if cfg.n_experts:           # count the prefill's capacity drops
+        counts, ffn = [], moe_mod.moe_ffn
+
+        def counted(p, h, c):
+            counts.append(moe_mod.dropped_slots(h, p, c))
+            return ffn(p, h, c)
+        moe_mod.moe_ffn = counted
+        try:
+            prefill_step(params, {"tokens": prompts})
+        finally:
+            moe_mod.moe_ffn = ffn
+        dropped = sum(counts)
+    decode_step = make_decode_step(cfg)
+
+    def four_steps():
+        tok, c = nxt, cache
+        for i in range(4):
+            tok, c = decode_step(params, c, tok, s + i, None)
+    busy = {}
+    for what, fn in (("prefill", lambda: prefill_step(
+            params, {"tokens": prompts})), ("4 decode steps", four_steps)):
+        wall, dev_ms, _ = _device_busy_ms(fn)
+        busy[what] = None if dev_ms is None else dev_ms / wall
+    del cache
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def share(x):
+        return "not measured" if x is None else f"{x:.1%}"
+    print(f"    generate ({b}, {s}) + {n_new} greedy tokens: {gen_wall:.3f} "
+          f"s; prefill {prefill_s * 1e3:.1f} ms ({b * s / prefill_s:.0f} "
+          f"tokens/s), decode {decode_ms:.2f} ms a step of {b} tokens; "
+          f"peak {peak_gb:.2f} GB; busy {share(busy['prefill'])} of the "
+          f"prefill, {share(busy['4 decode steps'])} of 4 decode steps; "
+          f"{flash} flash launches"
+          + ("" if dropped is None else
+             f"; {dropped} (token, expert) slots of "
+             f"{b * s * cfg.top_k * cfg.n_layers} dropped by capacity in "
+             f"the prefill") + f" ({smi})")
+    return cfg, params, dict(params_g=n_params / 1e9, gen_s=gen_wall,
+                             prefill_ms=prefill_s * 1e3,
+                             decode_ms=decode_ms, peak_gb=peak_gb,
+                             busy=busy, flash_launches=flash,
+                             dropped=dropped, layers=cfg.n_layers)
+
+
+def _lm_families_phase(dev, smi):
+    """Phase 17: the MoE, RG-LRU and SSD model families on the card, each
+    with seeded random weights, the previous model freed first:
+    recurrentgemma-2b at full width and depth serving a 3072-token prompt
+    (past its 2048-token window: the ring wraps; the window takes the
+    chunked path, so no flash launch); mamba2-130m at full size serving
+    phase 12's traffic and training 4 steps of (8, 4096) tokens in
+    microbatches of 2 with remat "dots", and a 2-layer float32 mamba2
+    card against host; phi3.5-moe at full width, 16 of its 32 layers,
+    serving phase 12's traffic with one flash launch a layer of the
+    prefill, and a 2-layer float32 route check.  Returns the stats."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    print(f"phase 17: the MoE, RG-LRU and SSD families on the card ({smi})")
+    stats = {}
+    for arch, layers, b, s, n_new in LM_SERVED:
+        cfg, params, st = _serve_lm(dev, smi, arch, layers, b, s, n_new)
+        stats[arch] = st
+        want = cfg.n_layers if cfg.n_experts else 0
+        if st["flash_launches"] != want:
+            _fail(f"{arch}: {st['flash_launches']} flash launches in "
+                  f"generate, expected {want}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "mamba2-130m":
+            run = RunConfig(model=cfg, **TRAIN_SHAPE)
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.flash_attention.launches = 0
+            trainer = Trainer(cfg, run, seed=0, device=dev)
+            hist = trainer.run(TRAIN_STEPS)
+            step_s = statistics.median(hist["dt"][1:])
+            tokens = run.global_batch * run.seq_len
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"    trained {TRAIN_STEPS} steps of ({run.global_batch}, "
+                  f"{run.seq_len}) tokens, microbatches of "
+                  f"{run.microbatch}, remat {run.remat!r}: losses "
+                  f"{[round(x, 6) for x in hist['loss']]}, steady step "
+                  f"{step_s:.4f} s ({tokens / step_s:.0f} tokens/s), peak "
+                  f"{peak:.2f} GB ({smi})")
+            if not all(np.isfinite(hist["loss"])):
+                _fail(f"mamba2 training losses {hist['loss']}")
+            st.update(train_losses=hist["loss"], train_step_s=step_s,
+                      train_tokens_per_s=tokens / step_s,
+                      train_peak_gb=peak)
+            del trainer
+            torch.cuda.empty_cache()
+            cfg2 = dataclasses.replace(cfg, n_layers=2,
+                                       param_dtype="float32",
+                                       compute_dtype="float32")
+            run2 = RunConfig(model=cfg2, mode="train", seq_len=256,
+                             global_batch=2)
+            host = tr.init_params(torch.Generator().manual_seed(2), cfg2)
+            card = tree_map(lambda x: x.to(dev), host)
+            batch_h = SyntheticLM(cfg2, run2, seed=1, device="cpu").batch(0)
+            batch_c = {k: v.to(dev) for k, v in batch_h.items()}
+            loss_c, _, g_c = value_and_grad(card, batch_c, cfg2, run2.remat)
+            loss_h, _, g_h = value_and_grad(host, batch_h, cfg2, run2.remat)
+            loss_err = abs(float(loss_c) - float(loss_h)) / abs(
+                float(loss_h))
+            grad_err = max(_max_err(x.cpu(), y.cpu())[1] for x, y in zip(
+                tree_leaves(g_c), tree_leaves(g_h)))
+            print(f"    2-layer float32 mamba2, (2, 256) tokens, card vs "
+                  f"host: loss {loss_err:.2e} relative (tolerance "
+                  f"{TRAIN_LOSS_TOL:g}), worst gradient leaf {grad_err:.2e} "
+                  f"of its max|g| (tolerance {TRAIN_GRAD_TOL:g})")
+            if not (loss_err <= TRAIN_LOSS_TOL
+                    and grad_err <= TRAIN_GRAD_TOL):
+                _fail("mamba2: the card's loss or gradients differ from "
+                      "the host's")
+            st.update(loss_err=loss_err, grad_err=grad_err)
+            del card, host, g_c, g_h
+        if cfg.n_experts:
+            cfg2 = dataclasses.replace(cfg, n_layers=2,
+                                       param_dtype="float32",
+                                       compute_dtype="float32")
+            params2 = tr.init_params(
+                torch.Generator(device=dev).manual_seed(2), cfg2)
+            prompts = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(1))
+            kernel2, _ = tr.prefill(params2, cfg2, tokens=prompts)
+            plain2, _ = tr.prefill(params2, cfg2, tokens=prompts,
+                                   use_flash=False)
+            st["route_err"] = _check_close(
+                f"2-layer float32 {cfg.name} prefill logits, kernel vs "
+                f"chunked route", kernel2, plain2, LM_ROUTE_TOL)
+            del params2, kernel2, plain2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
 def _print_ptxas(log):
     """Each kernel instance's registers, static shared memory and spills,
     from the compiler's `-Xptxas -v` report, under its name."""
@@ -2356,6 +2699,16 @@ def main() -> int:
     train = _train_phase(dev, root)
     print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 16. the Monte-Carlo mesh --------------------------------------------
+    t0 = time.perf_counter()
+    mc_launches, mc = _mc_mesh_phase(dev)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the MoE, RG-LRU and SSD families -------------------------------
+    t0 = time.perf_counter()
+    families = _lm_families_phase(dev, smi)
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -2393,10 +2746,13 @@ def main() -> int:
                              "stablelm-1.6b training (phase 15)":
                                  train["arena_launches"],
                              "BlockAMCPrecond analog refresh (phase 15)":
-                                 train["precond"]["analog_launches"]},
+                                 train["precond"]["analog_launches"],
+                             **{f"{what}, sharded (phase 16)": count
+                                for what, count in mc_launches.items()}},
         "maintenance": {key: maint[key] for key in (
             "repair_ms", "program_ms", "calibration_s", "r_hat")},
         "fleet": fleet,
+        "mc_mesh": mc,
     }]
     solver = banded_stats["solver path"]
     kernels.append({
@@ -2470,8 +2826,12 @@ def main() -> int:
         "launches_by_path": {"glm4-9b Engine.generate (phase 12)":
                                  lm_launches,
                              "stablelm-1.6b training (phase 15)":
-                                 train["flash_launches"]},
+                                 train["flash_launches"],
+                             **{f"{arch} generate (phase 17)":
+                                st["flash_launches"]
+                                for arch, st in families.items()}},
         "shapes": flash_stats,
+        "families": families,
         "lm": lm_stats,
         "train": train,
     })

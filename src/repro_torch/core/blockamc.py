@@ -1903,6 +1903,29 @@ def execute_arena_packed(pp: PackedArenaPlan, bs: torch.Tensor,
     return -scale * analog.adc(out, cfg)
 
 
+def execute_arena_packed_sharded(pp: PackedArenaPlan, bs: torch.Tensor,
+                                 mesh=None, axis_name: str = "mc",
+                                 use_kernel: Optional[bool] = None
+                                 ) -> torch.Tensor:
+    """`execute_arena_packed` with the instance axis split over a mesh.
+
+    Each rank runs its own share of the packed fleet (operator stacks,
+    scales, whole-schedule operators and right-hand sides carry the
+    instance axis; the shared window-program metadata is whole on every
+    rank - specs `sharding.partition.mc_packed_specs`), and the shares come
+    back gathered in rank order.  num_instances must divide over the axis.
+    mesh=None builds `launch.mesh.make_mc_mesh` on bs's device.
+    """
+    from repro_torch.sharding import partition as sp
+    mesh, rank, count = sp.mc_rank(mesh, axis_name, pp.num_instances,
+                                   "num_instances", bs.device)
+    (plan_spec, b_spec), out_spec = sp.mc_packed_specs(pp, axis_name)
+    xs = execute_arena_packed(sp.take_share(pp, plan_spec, rank, count),
+                              sp.take_share(bs, b_spec, rank, count),
+                              use_kernel=use_kernel)
+    return sp.gather_shares(xs, mesh, out_spec)
+
+
 # ---------------------------------------------------------------------------
 # Monte-Carlo drivers: one programmed plan per generator, batched
 #
@@ -1953,6 +1976,32 @@ def solve_batched(a: torch.Tensor, b: torch.Tensor,
     return execute_arena_packed(_packed_simulations(ap, len(gens)),
                                 b.expand((len(gens),) + tuple(b.shape)),
                                 use_kernel=use_kernel)
+
+
+def solve_batched_sharded(a: torch.Tensor, b: torch.Tensor,
+                          generators: Sequence[torch.Generator],
+                          cfg: AnalogConfig, stages: Optional[int] = None,
+                          mesh=None, axis_name: str = "mc",
+                          mode: str = "reference",
+                          use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """`solve_batched` with the simulations split over a mesh axis.
+
+    Each rank programs and solves its own share of the generators (specs
+    `sharding.partition.mc_solve_specs`); the system and right-hand sides
+    are whole on every rank, and the shares come back gathered in rank
+    order, so every rank holds the (S, n) / (S, n, k) result.  A rank's
+    share draws what the unsharded call draws for it.  The number of
+    generators must divide over the axis.  mesh=None builds
+    `launch.mesh.make_mc_mesh` on a's device.
+    """
+    from repro_torch.sharding import partition as sp
+    gens = list(generators)
+    mesh, rank, count = sp.mc_rank(mesh, axis_name, len(gens), "num_keys",
+                                   a.device)
+    (_, _, gspec), out_spec = sp.mc_solve_specs(axis_name)
+    xs = solve_batched(a, b, sp.take_share(gens, gspec, rank, count), cfg,
+                       stages, mode, use_kernel)
+    return sp.gather_shares(xs, mesh, out_spec)
 
 
 def solve_original_batched(a: torch.Tensor, b: torch.Tensor,

@@ -5,9 +5,17 @@ The two-stage BlockAMC architecture - many fixed-size arrays on a data bus,
 partial MVMs recovered by summation, INV results cascaded - is written over
 (rt, ct, s, s) tile tensors rather than Python tile lists, and the digital
 Schur pre-processing as recursive block inversion: GEMMs and leaf-size
-inverses only.  The reference lays those tile axes over a TPU mesh; the port
-runs on one device and has no mesh argument.  The Schur products stay plain
-`torch` matmuls, as the reference leaves them to XLA.
+inverses only.  The Schur products stay plain `torch` matmuls, as the
+reference leaves them to XLA.
+
+Mesh: the reference lays the tile axes over a ("data", "model") TPU mesh
+and lets XLA insert the bus traffic.  Here `mesh` is a 2-D
+`torch.distributed` DeviceMesh with those axis names: each rank computes
+the partial products of its tile rows (split over "data") and tile
+columns (split over "model"), the partials are summed over "model"
+(all-reduce) and the row blocks gathered over "data" (all-gather), so
+every rank holds the whole product.  Readouts, programming and the leaf
+solves stay whole on every rank.  With mesh=None nothing is split.
 
 Random draws: `build_dist_plan` consumes one `torch.Generator` level by
 level - at each level k the A2 blocks of all 2^k blocks as one stack, then
@@ -22,25 +30,68 @@ import dataclasses
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.analog import AnalogConfig, TileGrid, map_tiled_vec
 from repro_torch.device import resolve_device
 
 
-def _mvm_tiles(a_eff: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _mvm_tiles(a_eff: torch.Tensor, v: torch.Tensor,
+               mesh=None) -> torch.Tensor:
     """-A_eff @ v over an (rt, ct, s, s) effective tile tensor: per-tile
-    partial products summed along each tile row."""
+    partial products summed along each tile row; with a mesh, split over
+    its ("data", "model") axes (module docstring)."""
     rt, ct, s, _ = a_eff.shape
-    out = -torch.einsum("rcij,cj->ri", a_eff, v.reshape(ct, s))
-    return out.reshape(rt * s)
+    vt = v.reshape(ct, s)
+    if mesh is None:
+        return -torch.einsum("rcij,cj->ri", a_eff, vt).reshape(rt * s)
+    rows = _part(rt, mesh, "data")
+    cols = _part(ct, mesh, "model")
+    out = -torch.einsum("rcij,cj->ri", a_eff[rows, cols], vt[cols])
+    dist.all_reduce(out, group=mesh.get_group("model"))
+    return _gather_rows(out, rt, mesh).reshape(rt * s)
 
 
-def mvm_tiled_vec(grid: TileGrid, v: torch.Tensor,
-                  cfg: AnalogConfig) -> torch.Tensor:
+def _tile_slice(n: int, size: int, idx: int) -> slice:
+    """Rank idx of size's contiguous part of n tiles (the first n % size
+    ranks take one more, as `torch.tensor_split`)."""
+    per, extra = divmod(n, size)
+    lo = idx * per + min(idx, extra)
+    return slice(lo, lo + per + (idx < extra))
+
+
+def _axis(mesh, axis: str):
+    """(size, this rank's index) of a mesh axis."""
+    return (mesh.shape[mesh.mesh_dim_names.index(axis)],
+            mesh.get_local_rank(axis))
+
+
+def _part(n: int, mesh, axis: str) -> slice:
+    """This rank's part of n tiles along a mesh axis."""
+    return _tile_slice(n, *_axis(mesh, axis))
+
+
+def _gather_rows(out: torch.Tensor, rt: int, mesh) -> torch.Tensor:
+    """The (rt, s) product from every "data" rank's row block: blocks are
+    padded to the longest, gathered in rank order and trimmed."""
+    size, _ = _axis(mesh, "data")
+    pad = out.new_zeros((-(-rt // size),) + tuple(out.shape[1:]))
+    pad[:out.shape[0]] = out
+    parts = [torch.empty_like(pad) for _ in range(size)]
+    dist.all_gather(parts, pad, group=mesh.get_group("data"))
+    lengths = [sl.stop - sl.start
+               for sl in (_tile_slice(rt, size, i) for i in range(size))]
+    return torch.cat([p[:n] for p, n in zip(parts, lengths)])
+
+
+def mvm_tiled_vec(grid: TileGrid, v: torch.Tensor, cfg: AnalogConfig,
+                  mesh=None) -> torch.Tensor:
     """Partitioned analog MVM: out = -A_eff @ v with per-tile partial sums
     (the 'recover the final solution' step of refs [13]-[15]); `grid` is
-    (rt, ct, s, s), `v` an (ct * s,) vector."""
-    return _mvm_tiles(grid.a_eff(cfg), v)
+    (rt, ct, s, s), `v` an (ct * s,) vector.  With a ("data", "model")
+    mesh the partial products are split over its ranks and the partials
+    summed over "model" (module docstring)."""
+    return _mvm_tiles(grid.a_eff(cfg), v, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -125,15 +176,16 @@ def build_dist_plan(a, generator: torch.Generator, cfg: AnalogConfig,
     return DistPlan(mvm2, mvm3, leaves, scale, stages)
 
 
-def dist_execute(plan: DistPlan, b: torch.Tensor,
-                 cfg: AnalogConfig) -> torch.Tensor:
+def dist_execute(plan: DistPlan, b: torch.Tensor, cfg: AnalogConfig,
+                 mesh=None) -> torch.Tensor:
     """Run the cascade on an (n,) rhs; the five-step signs of
     `blockamc._exec_inv`.
 
     Every stack of the plan is read out once per call (drift and wire
     model, one call per stack) and the cascade indexes the readouts; the
     reference reads a block's arrays each time the cascade visits it,
-    which computes the same operators.
+    which computes the same operators.  `mesh` splits every MVM of the
+    cascade as `mvm_tiled_vec` does.
     """
     a2 = [g.a_eff(cfg) for g in plan.mvm2]
     a3 = [g.a_eff(cfg) for g in plan.mvm3]
@@ -148,9 +200,9 @@ def dist_execute(plan: DistPlan, b: torch.Tensor,
         m = v.shape[0] // 2
         f, g = v[:m], v[m:]
         neg_yt = exec_inv(level + 1, 2 * idx, f)                 # step 1
-        gt = _mvm_tiles(a3[level][idx], neg_yt)                  # step 2
+        gt = _mvm_tiles(a3[level][idx], neg_yt, mesh)            # step 2
         z = exec_inv(level + 1, 2 * idx + 1, -g + gt)            # step 3
-        neg_ft = _mvm_tiles(a2[level][idx], z)                   # step 4
+        neg_ft = _mvm_tiles(a2[level][idx], z, mesh)             # step 4
         neg_y = exec_inv(level + 1, 2 * idx, f + neg_ft)         # step 5
         return torch.cat([neg_y, -z])
 
@@ -158,8 +210,10 @@ def dist_execute(plan: DistPlan, b: torch.Tensor,
 
 
 def solve_distributed(a, b, generator: torch.Generator, cfg: AnalogConfig,
-                      stages: int, device="cuda") -> torch.Tensor:
-    """Build the tile-solver plan for A on `device` and solve A x = b."""
+                      stages: int, mesh=None,
+                      device="cuda") -> torch.Tensor:
+    """Build the tile-solver plan for A on `device` and solve A x = b,
+    the MVMs split over `mesh` when one is given."""
     plan = build_dist_plan(a, generator, cfg, stages, device)
     b = torch.as_tensor(b, device=plan.scale.device)
-    return dist_execute(plan, b, cfg)
+    return dist_execute(plan, b, cfg, mesh)

@@ -5,7 +5,8 @@
   * `krylov`    - batched `pcg`, `pcg_fixed` and restarted `gmres(m)` with
     per-RHS convergence masks and a true exit residual.
   * `refine`    - the analog-seed -> Krylov-refine path (`solve_refined`,
-    with an implicit-function-theorem backward), its Monte-Carlo form, and
+    with an implicit-function-theorem backward), its Monte-Carlo form
+    and that form split over a mesh axis, and
     `solve_fallback`, the digital-only degraded mode.
   * `classic`   - single-rhs Richardson / CG refinement helpers.
 """
@@ -16,4 +17,5 @@ from repro_torch.hybrid.krylov import (  # noqa: F401
 from repro_torch.hybrid.operators import (  # noqa: F401
     AnalogPreconditioner, matvec_from_dense)
 from repro_torch.hybrid.refine import (  # noqa: F401
-    solve_fallback, solve_refined, solve_refined_batched)
+    solve_fallback, solve_refined, solve_refined_batched,
+    solve_refined_batched_sharded)

@@ -22,8 +22,8 @@ gradients; the diagnostics and the preconditioner are constants.
 
 `solve_refined_batched` programs one preconditioner per Monte-Carlo
 generator (the partitioning hoisted) and refines the same right-hand sides
-against each, in turn.  The reference's mesh-sharded variant is not
-ported.
+against each, in turn; `solve_refined_batched_sharded` splits those
+generators over a mesh axis (`sharding.partition.mc_refined_specs`).
 """
 from __future__ import annotations
 
@@ -178,3 +178,34 @@ def solve_refined_batched(a, b, generators: Sequence[torch.Generator],
                                      int(maxiter), int(restart),
                                      bool(use_precond)))
     return KrylovResult(*(torch.stack(field) for field in zip(*results)))
+
+
+def solve_refined_batched_sharded(a, b,
+                                  generators: Sequence[torch.Generator],
+                                  cfg: AnalogConfig, *,
+                                  stages: Optional[int] = None,
+                                  method: str = "cg", tol: float = 1e-10,
+                                  maxiter: int = 400, restart: int = 32,
+                                  use_precond: bool = True, mesh=None,
+                                  axis_name: str = "mc", mode: str = "fused",
+                                  device="cuda") -> KrylovResult:
+    """`solve_refined_batched` with the generators split over a mesh axis.
+
+    Each rank programs and refines its own share of noisy preconditioners
+    (specs `sharding.partition.mc_refined_specs`); the matrix,
+    pre-processing and right-hand sides are whole on every rank, and every
+    field of the KrylovResult comes back gathered along the key axis in
+    rank order.  The number of generators must divide over the axis.
+    mesh=None builds `launch.mesh.make_mc_mesh` on `device`.
+    """
+    from repro_torch.sharding import partition as sp
+    dev = resolve_device(device)
+    gens = list(generators)
+    mesh, rank, count = sp.mc_rank(mesh, axis_name, len(gens), "num_keys",
+                                   dev)
+    (*_, gspec), out_spec = sp.mc_refined_specs(axis_name)
+    res = solve_refined_batched(
+        a, b, sp.take_share(gens, gspec, rank, count), cfg, stages=stages,
+        method=method, tol=tol, maxiter=maxiter, restart=restart,
+        use_precond=use_precond, mode=mode, device=dev)
+    return sp.gather_shares(res, mesh, out_spec)

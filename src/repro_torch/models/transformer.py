@@ -1,6 +1,8 @@
 """Decoder-only transformer assembly, as `repro/models/transformer.py`,
-for the block kinds the port has: attention blocks with a dense SwiGLU FFN
-(the dense family).
+for every block kind of the reference: attention (`attn`), RG-LRU
+(`rec`, `models/rglru.py`) and SSD (`ssm`, `models/ssm.py`) mixers, each
+followed, where the config has an FFN, by a dense SwiGLU or an MoE FFN
+(`models/moe.py`, whose auxiliary loss `forward` sums over the layers).
 
 The layer stack is the reference's: a repeated `layer_pattern` unit whose
 homogeneous repeats are stacked on a leading axis under `params["blocks"]`
@@ -9,24 +11,25 @@ homogeneous repeats are stacked on a leading axis under `params["blocks"]`
 key for key.  The reference scans over the stacked axis; the port runs a
 Python loop over it, over views of the stacked tensors (`forward` takes
 them with one `unbind` a tensor, whose backward is one `stack`).
-Recurrent (`rec`), SSM (`ssm`) and MoE blocks raise NotImplementedError
-(ROADMAP.md queue 1, the language-model blocks), and with them
-the local-attention window of hybrid patterns: `prefill`, `decode_step`
-and `init_cache` run full causal attention, and `forward` takes a window
-only from `window_override`.
+In hybrid patterns (a `rec` block in the unit) the attention blocks run
+over the config's `local_window` (`forward`'s `window_override` replaces
+it): their prefill caches and `init_cache`'s are ring buffers of
+min(cache_len, local_window) slots, and the windowed attention takes the
+chunked path (`models/attention.py`).
 
 `init_params(gen, cfg)` cannot replay `jax.random`; it draws from one
 `torch.Generator`, on the generator's device, in this order: the
 embedding, the LM head (untied configs), then every stacked repeat in
 order and each block of its unit in order, then the remainder layers; a
-block draws its attention weights (wq, wk, wv, wo), then its FFN (gate,
-up, down).  Norm weights are zeros.
+block draws its mixer (attention: wq, wk, wv, wo; RG-LRU and SSM in their
+modules' orders), then its FFN (dense: gate, up, down; MoE in its
+module's order).  Norm weights are zeros.
 
 `use_flash` on `block_forward`, `forward`, `block_prefill` and `prefill`
 routes full-causal attention (see `models/attention.py`): by default
 through the hand-written flash kernel for CUDA tensors, and through the
 chunked path wherever autograd records.  Decode updates the cache in
-place and returns it.
+place and returns it, the recurrent states included.
 
 `remat` ("none" | "dots" | "full") rematerialises each repeat of the
 stacked unit in `forward`, as the reference's `jax.checkpoint` of its
@@ -49,29 +52,12 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mm, rms_norm, softcap, swiglu_ffn,
                                        swiglu_ffn_init)
 from repro_torch.tree import tree_map
-
-_NOT_PORTED = ("{} blocks are not ported yet (ROADMAP.md queue 1, the "
-               "language-model blocks: models/{}.py); the port runs the "
-               "dense family")
-
-
-def _unported(kind: str, is_moe: bool = False):
-    if is_moe:
-        return NotImplementedError(_NOT_PORTED.format("MoE", "moe"))
-    return NotImplementedError(_NOT_PORTED.format(
-        {"rec": "RG-LRU (rec)", "ssm": "SSM"}.get(kind, kind),
-        {"rec": "rglru", "ssm": "ssm"}.get(kind, kind)))
-
-
-def _check_ported(unit):
-    for kind, is_moe in unit:
-        if kind != "attn":
-            raise _unported(kind)
-        if is_moe:
-            raise _unported(kind, is_moe)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -91,25 +77,47 @@ def _index(tree, r: int):
 # Blocks
 # ---------------------------------------------------------------------------
 
+_INIT_MIX = {"attn": attn_mod.init_attention, "rec": rglru_mod.init_rglru,
+             "ssm": ssm_mod.init_ssm}
+
+
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                is_moe: bool) -> Dict:
     dtype = _dtype(cfg.param_dtype)
-    _check_ported(((kind, is_moe),))
+    if kind not in _INIT_MIX:
+        raise ValueError(kind)
     params: Dict[str, Any] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32,
                            device=gen.device),
-        "mix": attn_mod.init_attention(gen, cfg, dtype),
+        "mix": _INIT_MIX[kind](gen, cfg, dtype),
     }
     if cfg.d_ff > 0:
         params["ln2"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
                                     device=gen.device)
-        params["ffn"] = swiglu_ffn_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        params["ffn"] = (moe_mod.init_moe(gen, cfg, dtype) if is_moe else
+                         swiglu_ffn_init(gen, cfg.d_model, cfg.d_ff, dtype))
     return params
 
 
-def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN with its residual, where the config has one:
+    (x, the MoE aux loss, zero for a dense FFN or none)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.d_ff == 0:
+        return x, aux
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + swiglu_ffn(params["ffn"], h)
+    if is_moe:
+        out, aux = moe_mod.moe_ffn(params["ffn"], h, cfg)
+    else:
+        out = swiglu_ffn(params["ffn"], h)
+    return x + out, aux
+
+
+def _window(cfg: ModelConfig, unit) -> Optional[int]:
+    """The attention window of a pattern: `local_window` in hybrid
+    patterns (a `rec` block in the unit), else none."""
+    return cfg.local_window if any(k == "rec" for k, _ in unit) else None
 
 
 def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -117,32 +125,38 @@ def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                   window: Optional[int], *, use_flash: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, aux_loss)."""
-    _check_ported(((kind, is_moe),))
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attention(params["mix"], h, positions, cfg,
-                               window=window, use_flash=use_flash)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.d_ff > 0:
-        x = _ffn(params, x, cfg)
-    return x, aux
+    if kind == "attn":
+        mixed = attn_mod.attention(params["mix"], h, positions, cfg,
+                                   window=window, use_flash=use_flash)
+    elif kind == "rec":
+        mixed = rglru_mod.rglru_forward(params["mix"], h, cfg)
+    else:
+        mixed = ssm_mod.ssm_forward(params["mix"], h, cfg)
+    return _ffn(params, x + mixed, cfg, is_moe)
 
 
 def init_block_cache(batch: int, cache_len: int, cfg: ModelConfig,
                      kind: str, dtype=torch.bfloat16, device="cuda") -> Dict:
-    _check_ported(((kind, False),))
-    return attn_mod.init_kv_cache(batch, cache_len, cfg, dtype, device)
+    if kind == "attn":
+        return attn_mod.init_kv_cache(batch, cache_len, cfg, dtype, device)
+    if kind == "rec":
+        return rglru_mod.init_rglru_cache(batch, cfg, dtype, device)
+    return ssm_mod.init_ssm_cache(batch, cfg, dtype, device)
 
 
 def block_decode(params: Dict, x_t: torch.Tensor, cache: Dict, pos,
                  cfg: ModelConfig, kind: str, is_moe: bool,
                  window: Optional[int]) -> Tuple[torch.Tensor, Dict]:
-    _check_ported(((kind, is_moe),))
     h = rms_norm(x_t, params["ln1"], cfg.norm_eps)
-    mixed, cache = attn_mod.attention_decode(params["mix"], h, cache, pos,
-                                             cfg, window=window)
-    x_t = x_t + mixed
-    if cfg.d_ff > 0:
-        x_t = _ffn(params, x_t, cfg)
+    if kind == "attn":
+        mixed, cache = attn_mod.attention_decode(params["mix"], h, cache,
+                                                 pos, cfg, window=window)
+    elif kind == "rec":
+        mixed, cache = rglru_mod.rglru_decode(params["mix"], h, cache, cfg)
+    else:
+        mixed, cache = ssm_mod.ssm_decode(params["mix"], h, cache, cfg)
+    x_t, _ = _ffn(params, x_t + mixed, cfg, is_moe)
     return x_t, cache
 
 
@@ -197,7 +211,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     docstring."""
     dtype = _dtype(cfg.param_dtype)
     unit, n_rep, n_rem = stack_layout(cfg)
-    _check_ported(unit)
     dev = gen.device
     v = padded_vocab(cfg)
     params: Dict[str, Any] = {
@@ -271,17 +284,19 @@ def forward(params: Dict, cfg: ModelConfig, *,
             remat: str = "none", use_flash: Optional[bool] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, Vpad), aux_loss scalar).  `remat`
-    rematerialises each stacked repeat (module docstring)."""
+    rematerialises each stacked repeat (module docstring); the attention
+    window is `window_override`, else the pattern's (`_window`)."""
     x = _embed(params, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     unit, n_rep, n_rem = stack_layout(cfg)
-    _check_ported(unit)
+    window = (window_override if window_override is not None
+              else _window(cfg, unit))
 
     def super_fwd(lp, x, aux):
         for i, (kind, is_moe) in enumerate(unit):
             x, a = block_forward(lp[f"b{i}"], x, positions, cfg, kind,
-                                 is_moe, window_override,
+                                 is_moe, window if kind == "attn" else None,
                                  use_flash=use_flash)
             aux = aux + a
         return x, aux
@@ -295,7 +310,8 @@ def forward(params: Dict, cfg: ModelConfig, *,
     for r in range(n_rem):
         kind, is_moe = unit[r]
         x, a = block_forward(params[f"rem{r}"], x, positions, cfg, kind,
-                             is_moe, window_override, use_flash=use_flash)
+                             is_moe, window if kind == "attn" else None,
+                             use_flash=use_flash)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -305,16 +321,19 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                   window: Optional[int], cache_len: int, cache_dtype, *,
                   use_flash: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    _check_ported(((kind, is_moe),))
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    clen = min(cache_len, window) if window is not None else cache_len
-    mixed, cache = attn_mod.attention_prefill(
-        params["mix"], h, positions, cfg, clen, window=window,
-        cache_dtype=cache_dtype, use_flash=use_flash)
-    x = x + mixed
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.d_ff > 0:
-        x = _ffn(params, x, cfg)
+    if kind == "attn":
+        clen = min(cache_len, window) if window is not None else cache_len
+        mixed, cache = attn_mod.attention_prefill(
+            params["mix"], h, positions, cfg, clen, window=window,
+            cache_dtype=cache_dtype, use_flash=use_flash)
+    elif kind == "rec":
+        mixed, cache = rglru_mod.rglru_forward(params["mix"], h, cfg,
+                                               return_cache=True)
+    else:
+        mixed, cache = ssm_mod.ssm_forward(params["mix"], h, cfg,
+                                           return_cache=True)
+    x, aux = _ffn(params, x + mixed, cfg, is_moe)
     return x, cache, aux
 
 
@@ -331,7 +350,7 @@ def prefill(params: Dict, cfg: ModelConfig, *,
         cache_len = s
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     unit, n_rep, n_rem = stack_layout(cfg)
-    _check_ported(unit)
+    window = _window(cfg, unit)
 
     cache: Dict[str, Any] = {}
     stacked = None
@@ -340,16 +359,18 @@ def prefill(params: Dict, cfg: ModelConfig, *,
         caches = {}
         for i, (kind, is_moe) in enumerate(unit):
             x, caches[f"b{i}"], _ = block_prefill(
-                lp[f"b{i}"], x, positions, cfg, kind, is_moe, None,
-                cache_len, cache_dtype, use_flash=use_flash)
+                lp[f"b{i}"], x, positions, cfg, kind, is_moe,
+                window if kind == "attn" else None, cache_len, cache_dtype,
+                use_flash=use_flash)
         stacked = _stack_into(stacked, caches, r, n_rep)
     if stacked is not None:
         cache["blocks"] = stacked
     for r in range(n_rem):
         kind, is_moe = unit[r]
         x, cache[f"rem{r}"], _ = block_prefill(
-            params[f"rem{r}"], x, positions, cfg, kind, is_moe, None,
-            cache_len, cache_dtype, use_flash=use_flash)
+            params[f"rem{r}"], x, positions, cfg, kind, is_moe,
+            window if kind == "attn" else None, cache_len, cache_dtype,
+            use_flash=use_flash)
     logits = _head(params, cfg, x[:, -1:])
     return logits[:, 0, :], cache
 
@@ -361,13 +382,16 @@ def prefill(params: Dict, cfg: ModelConfig, *,
 def init_cache(batch: int, cache_len: int, cfg: ModelConfig,
                dtype=torch.bfloat16, device="cuda") -> Dict:
     """Zeroed decode caches, stacked as the parameters are, on `device`
-    (default the card; raises without one)."""
+    (default the card; raises without one).  Attention caches of hybrid
+    patterns hold min(cache_len, local_window) slots."""
     unit, n_rep, n_rem = stack_layout(cfg)
-    _check_ported(unit)
     device = resolve_device(device)
+    window = _window(cfg, unit)
 
     def one(kind):
-        return init_block_cache(batch, cache_len, cfg, kind, dtype, device)
+        clen = cache_len if kind != "attn" or window is None \
+            else min(cache_len, window)
+        return init_block_cache(batch, clen, cfg, kind, dtype, device)
 
     cache: Dict[str, Any] = {}
     if n_rep > 0:
@@ -390,14 +414,14 @@ def decode_step(params: Dict, cache: Dict, tokens_t: torch.Tensor, pos,
     x = _embed(params, cfg, None if tokens_t is None else tokens_t[:, None],
                embeds_t)
     unit, n_rep, n_rem = stack_layout(cfg)
-    _check_ported(unit)
+    window = _window(cfg, unit)
     for r in range(n_rep):
         lp, lc = _index(params["blocks"], r), _index(cache["blocks"], r)
         for i, (kind, is_moe) in enumerate(unit):
             x, _ = block_decode(lp[f"b{i}"], x, lc[f"b{i}"], pos, cfg, kind,
-                                is_moe, None)
+                                is_moe, window if kind == "attn" else None)
     for r in range(n_rem):
         kind, is_moe = unit[r]
         x, _ = block_decode(params[f"rem{r}"], x, cache[f"rem{r}"], pos, cfg,
-                            kind, is_moe, None)
+                            kind, is_moe, window if kind == "attn" else None)
     return _head(params, cfg, x)[:, 0, :], cache

@@ -46,8 +46,9 @@ about 7*nc + 5*nr host-issued steps around one kernel launch.
 
 Every function takes torch tensors; stacks carry leading batch axes.
 `use_kernel=None` runs the sweeps in the CUDA kernel for a tensor on the
-card and in the plain version (`kernels/ref.py`) for one on the host;
-False asks for the plain version; True on a host tensor raises.  r_seg == 0
+card and in the plain version (`kernels/ref.py`) for one on the host, or
+while autograd records through the sweeps; False asks for the plain
+version; True on a host tensor or under autograd raises.  r_seg == 0
 is the ideal-wire limit and short-circuits before any solve.
 """
 from __future__ import annotations
@@ -174,19 +175,34 @@ def _factor(g: torch.Tensor, gw: float, wfac=None) -> torch.Tensor:
     return ms
 
 
+def _sweep_route(use_kernel: Optional[bool], on_card: bool,
+                 grad: bool) -> bool:
+    """Whether the sweeps take the block-Thomas kernel.  `None` takes it
+    for CUDA tensors unless autograd records through them (`grad`): the
+    kernel writes outside autograd, so a differentiated call takes the
+    plain sweeps, on the card as on the host, and `True` then raises, as
+    it does on the host."""
+    if use_kernel is None:
+        return on_card and not grad
+    if use_kernel and grad:
+        raise ValueError("use_kernel=True: the block-Thomas kernel runs "
+                         "outside autograd and takes no gradient")
+    if use_kernel and not on_card:
+        raise ValueError("use_kernel=True needs CUDA tensors: the "
+                         "block-Thomas kernel has no host mode")
+    return bool(use_kernel)
+
+
 def _sweeps(minvs: torch.Tensor, rhs: torch.Tensor, gw: float,
             use_kernel: Optional[bool]) -> torch.Tensor:
     """Batched sweep dispatch: (B, nr, nc, nc) x (B, nr, nc, k)."""
     from repro_torch.kernels import ops as _ops
     from repro_torch.kernels import ref as _ref
-    if use_kernel is None:
-        use_kernel = rhs.is_cuda
-    if not use_kernel:
-        return _ref.block_tridiag_solve_ref(minvs, rhs, gw=gw)
-    if not rhs.is_cuda:
-        raise ValueError("use_kernel=True needs CUDA tensors: the "
-                         "block-Thomas kernel has no host mode")
-    return _ops.block_tridiag_solve(minvs, rhs, gw=gw)
+    grad = torch.is_grad_enabled() and (minvs.requires_grad
+                                        or rhs.requires_grad)
+    if _sweep_route(use_kernel, rhs.is_cuda, grad):
+        return _ops.block_tridiag_solve(minvs, rhs, gw=gw)
+    return _ref.block_tridiag_solve_ref(minvs, rhs, gw=gw)
 
 
 # ---------------------------------------------------------------------------

@@ -379,18 +379,6 @@ def test_reset_slots_matches(model):
     assert float(got["blocks"]["b0"]["k"][:, 1].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-130m",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "llama4-maverick-400b-a17b"])
-def test_unported_block_kinds_raise(arch):
-    cfg = reduce_cfg(j_get_config(arch))
-    tcfg = get_config(arch).__class__(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ttr.init_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ttr.init_cache(1, 4, tcfg, dtype=torch.float32, device="cpu")
-
-
 def test_remat_other_than_none_raises(model):
     """"none", "dots" and "full" are the reference's remat modes (the
     training tests hold all three to it); any other raises."""
