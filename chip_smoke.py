@@ -11,8 +11,9 @@ interconnect study under the exact nodal wire model, the kernel bench's
 rows, the example's path (`examples/solve_linear_system.py`), the
 language-model serving path (glm4-9b prefill and decode), the training
 path with the BlockAMC preconditioner (stablelm-1.6b), the Monte-Carlo
-mesh (the `*_sharded` solvers on a one-rank NCCL group) and the MoE,
-RG-LRU and SSD model families.  Phases (every check raises; nothing is
+mesh (the `*_sharded` solvers on a one-rank NCCL group), the MoE,
+RG-LRU and SSD model families and the language model's mesh (DTensor
+serving and training on a one-rank NCCL group).  Phases (every check raises; nothing is
 caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
@@ -137,6 +138,18 @@ caught):
      drops counted, and a 2-layer float32 route check (2e-4 of
      max|logit|); prefill wall, decode ms a step, peak memory and busy
      share of each;
+ 18. the language model's mesh on a one-rank NCCL group
+     (`make_host_mesh(1, 1)`), every tensor a DTensor: glm4-9b at full
+     size under `make_policy` (phase 12's prompt, 40 flash launches on
+     the local heads, logits 2e-4 of max|logit| from the unsharded
+     prefill, 8 greedy steps with the same ids, walls and busy shares
+     beside phase 12's); stablelm-1.6b at 4 of its 24 layers, 2
+     sharded steps (`make_state_shardings`, `batch_sharding`,
+     `grad_shardings`) against the unsharded step (loss 1e-5 relative,
+     parameters 1e-4 of max|p|, no flash launch); `compressed_psum` over
+     a one-rank "pod" axis; the state saved sharded and restored with
+     `sharding_tree` bit for bit; `pipeline_apply` on a one-rank "pp"
+     axis against the stack;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -148,6 +161,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 from functools import partial
 import statistics
 import subprocess
@@ -2406,6 +2420,317 @@ def _lm_families_phase(dev, smi):
     return stats
 
 
+MESH_TRAIN_LAYERS = 4    # stablelm-1.6b's 24 layers cut to 4 for phase 18
+MESH_TRAIN_SHAPE = dict(mode="train", seq_len=4096, global_batch=4,
+                        microbatch=2, remat="dots", fsdp=True)
+MESH_LOGIT_TOL = 2e-4    # sharded vs unsharded prefill logits, of
+#                          max|logit| (phase 12's route tolerance)
+MESH_LOSS_TOL = 1e-5     # sharded vs unsharded step loss, relative
+MESH_STATE_TOL = 1e-4    # sharded vs unsharded state (parameters, Adam
+#                          moments) after a step, of each leaf's max|x|
+
+
+def _lm_mesh_phase(dev, smi, lm_stats):
+    """Phase 18: the language model's mesh on a one-rank NCCL group
+    (`launch.mesh.make_host_mesh(1, 1)`), every tensor a DTensor:
+
+    (a) glm4-9b at full size (bf16, phase 12's seeded weights and (4,
+        1024) prompt), parameters laid out by `make_param_shardings`
+        inside `policy_scope(make_policy(...))`: `tr.prefill` (one flash
+        launch a layer, on each rank's local heads) against the
+        unsharded prefill at the same parameters, then
+        `Engine.generate` of the prefill's token and 8 greedy steps
+        against the unsharded engine's ids; prefill wall, decode ms a
+        step and the card's busy share beside phase 12's;
+    (b) `_mesh_train`: stablelm-1.6b at full width, its 24 layers cut
+        to 4, two sharded training steps against the unsharded ones
+        (loss, gradient norm, every leaf of the state); the step walls
+        of both;
+    (c) `compressed_psum` over a one-rank "pod" axis of two of (b)'s
+        parameters: the int8 quantise-dequantise, and the residual
+        g32 - deq;
+    (d) (b)'s state saved sharded and restored with
+        `restore_checkpoint(..., sharding_tree=)`: every leaf bit for
+        bit;
+    (e) `pipeline_apply` on a one-rank "pp" axis against the sequential
+        stack, forward and gradient.
+
+    The group is destroyed at the end.  Returns the phase's stats."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.ckpt import (flatten, restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.lm_engine import Engine
+    from repro_torch.optim.grad_compression import (compressed_psum,
+                                                    dequantize_int8,
+                                                    init_error_state,
+                                                    quantize_int8)
+    from repro_torch.sharding import api, partition
+    from repro_torch.train import pipeline
+    if dist.is_initialized():
+        _fail("a process group exists before phase 18")
+    mesh = make_host_mesh(1, 1, device=dev)
+    print(f"phase 18: the language model's mesh on a one-rank "
+          f"{dist.get_backend()} group, mesh {mesh}")
+    stats = {}
+
+    # -- (a) sharded prefill and decode, glm4-9b full size ----------------
+    cfg = get_config("glm4-9b")
+    run = RunConfig(model=cfg, mode="prefill", seq_len=1024, global_batch=4)
+    params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    b, s, n_new, max_len = 4, 1024, 8, 1056
+    prompts = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                            generator=torch.Generator(device=dev
+                                                      ).manual_seed(1))
+    with torch.no_grad():
+        want, _ = tr.prefill(params, cfg, tokens=prompts)
+    want_ids = Engine(cfg, params, max_len=max_len).generate(prompts, n_new)
+    policy = partition.make_policy(mesh, cfg, run)
+    with api.policy_scope(policy), torch.no_grad():
+        placed = partition.distribute(params, partition.make_param_shardings(
+            params, mesh, run.fsdp))
+        tok = partition.distribute(prompts, partition.batch_sharding(
+            mesh, cfg, run))
+        tr.prefill(placed, cfg, tokens=tok)                 # warm-up
+        torch.cuda.synchronize()
+        flash_attention.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        got, _ = tr.prefill(placed, cfg, tokens=tok)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = flash_attention.flash_attention.launches
+        kind = type(got).__name__
+        got = api.whole(got)
+        engine = Engine(cfg, placed, max_len=max_len)
+        engine.generate(tok, 2)                             # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = engine.generate(tok, n_new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        decode_ms = (gen_s * 1e3 - prefill_ms) / n_new
+        busy = {}
+        for what, fn in (("prefill", lambda: tr.prefill(placed, cfg,
+                                                        tokens=tok)),
+                         ("generate", lambda: engine.generate(tok, n_new))):
+            wall, dev_ms, _ = _device_busy_ms(fn)
+            busy[what] = dict(wall_ms=wall, busy_ms=dev_ms)
+    print(f"  (a) glm4-9b, {kind} parameters and activations: prefill "
+          f"(4, 1024) {launches} flash launches")
+    if launches != cfg.n_layers:
+        _fail(f"the sharded prefill launched the flash kernel {launches} "
+              f"times, expected {cfg.n_layers}")
+    err = _check_close("sharded vs unsharded prefill logits", got, want,
+                       MESH_LOGIT_TOL)
+    same_ids = bool(torch.equal(ids, want_ids))
+    print(f"  greedy ids (prefill + {n_new - 1} decode steps) equal the "
+          f"unsharded engine's: {same_ids}")
+    if not same_ids:
+        _fail("the sharded engine's greedy ids differ from the unsharded")
+    p12 = lm_stats["profiled"]
+
+    def share(d):
+        return ("not measured" if d["busy_ms"] is None else
+                f"{d['busy_ms'] / d['wall_ms']:.1%} busy")
+    print(f"  host clock ({smi}): prefill {prefill_ms:.1f} ms (phase 12: "
+          f"{lm_stats['prefill_ms']:.1f}), decode {decode_ms:.2f} ms a step "
+          f"(phase 12: {lm_stats['decode_ms']:.2f}); torch.profiler: "
+          f"prefill {share(busy['prefill'])} (phase 12: "
+          f"{share(p12['prefill'])}), generate {share(busy['generate'])} "
+          f"(phase 12's 4 decode steps: {share(p12['4 decode steps'])})")
+    stats["a"] = dict(flash_launches=launches, logit_err=err,
+                      ids_equal=same_ids, prefill_ms=prefill_ms,
+                      decode_ms=decode_ms, profiled=busy)
+    del params, placed, engine, got, want
+    torch.cuda.empty_cache()
+
+    # -- (b) sharded training step, stablelm-1.6b at 4 layers ------------
+    st, state, new, run = _mesh_train(dev, smi, mesh)
+    stats["b"] = st
+
+    # -- (c) compressed_psum over a one-rank "pod" axis ------------------
+    pods = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+    grads = {"embed": api.whole(new.params["embed"]),
+             "wq": api.whole(new.params["blocks"]["b0"]["mix"]["wq"])}
+    total, resid = compressed_psum(grads, pods, "pod",
+                                   init_error_state(grads))
+    for key, g in grads.items():
+        q, sc = quantize_int8(g.to(torch.float32))
+        deq = dequantize_int8(q, sc)
+        if not (torch.equal(total[key], deq) and torch.equal(
+                resid[key], g.to(torch.float32) - deq)):
+            _fail(f"compressed_psum over one rank is not quantise-"
+                  f"dequantise for {key}")
+    print(f"  (c) compressed_psum over a one-rank 'pod' axis: "
+          f"{', '.join(f'{k} {tuple(v.shape)}' for k, v in grads.items())}"
+          f" equal quantise-dequantise, residuals g32 - deq")
+    del grads, total, resid
+
+    # -- (d) sharded save, sharding_tree restore -------------------------
+    where = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(where, 2, new)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_checkpoint(where, 2, state, sharding_tree=(
+            partition.make_state_shardings(state, mesh, run.fsdp)))
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    n_leaves = 0
+    for (key, a), (_, w) in zip(flatten(back), flatten(new)):
+        n_leaves += 1
+        if not (api.is_dtensor(a) and a.placements == w.placements
+                and torch.equal(a.full_tensor(), w.full_tensor())):
+            _fail(f"restored leaf {key} differs from the saved state")
+    print(f"  (d) sharded save {save_s:.2f} s, restore with sharding_tree "
+          f"{restore_s:.2f} s: {n_leaves} leaves bit for bit, placements "
+          f"kept")
+    stats["d"] = dict(save_s=save_s, restore_s=restore_s, leaves=n_leaves)
+    del state, new, back
+    torch.cuda.empty_cache()
+
+    # -- (e) pipeline_apply on a one-rank "pp" axis ----------------------
+    pp = init_device_mesh(dev.type, (1,), mesh_dim_names=("pp",))
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = (torch.randn((8, 16, 16), generator=g, device=dev) * 0.125)
+    x = torch.randn((8, 2, 16), generator=g, device=dev)
+
+    def stack(p, h):
+        for wi in p:
+            h = torch.tanh(h @ wi)
+        return h
+    wp, ws = w.clone().requires_grad_(), w.clone().requires_grad_()
+    outs = pipeline.pipeline_apply(stack, wp, x, pp, "pp")
+    (outs ** 2).sum().backward()
+    seq = stack(ws, x)
+    (seq ** 2).sum().backward()
+    f_err = _check_close("one-stage pipeline vs the stack", outs.detach(),
+                         seq.detach(), 2e-5)
+    g_err = _check_close("one-stage pipeline gradient vs the stack's",
+                         wp.grad, ws.grad, 2e-4)
+    stats["e"] = dict(forward_err=f_err, grad_err=g_err)
+    dist.destroy_process_group()
+    return stats
+
+
+def _state_err(got, want):
+    """(worst, key): the largest max|a - w| over the leaf's own max|w|
+    between the train states `got` (DTensors) and `want`, leaf by leaf,
+    and the leaf where it is; a leaf whose max|w| is 0 counts 0 where a
+    equals it and inf otherwise."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.sharding import api
+    worst, where = 0.0, None
+    for (key, a), (_, w) in zip(flatten(got), flatten(want)):
+        a, w = api.whole(a).float(), w.float()
+        diff, scale = float((a - w).abs().max()), float(w.abs().max())
+        err = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+        if err > worst or where is None:
+            worst, where = err, key
+    return worst, where
+
+
+def _mesh_train(dev, smi, mesh):
+    """Phase 18 (b): stablelm-1.6b at full width and MESH_TRAIN_LAYERS
+    layers, MESH_TRAIN_SHAPE, two steps of `make_train_step(...,
+    grad_shardings=)` on a state laid out by `make_state_shardings` and
+    batches by `batch_sharding`, against the unsharded step from the same
+    state.  After each step the loss and the gradient norm agree within
+    MESH_LOSS_TOL, and every leaf of the state - the parameters and both
+    Adam moments, which the gradients set (m = 0.1 g after the first
+    step, while the first update moves a parameter by lr x 0.005, below
+    its bf16 spacing) - within MESH_STATE_TOL of the leaf's own max.  No
+    flash launch (autograd takes the chunked route).  Returns (stats,
+    the initial state, the sharded state after step 2, the run)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding import api, partition
+    from repro_torch.train.train_step import init_train_state, \
+        make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=MESH_TRAIN_LAYERS)
+    run = RunConfig(model=cfg, **MESH_TRAIN_SHAPE)
+    opt = AdamW(lr=run.learning_rate)
+    state, _ = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                cfg, run, opt)
+    data = SyntheticLM(cfg, run, seed=0, device=dev)
+    walls = {"unsharded": [], "sharded": []}
+    after = {"unsharded": [], "sharded": []}
+
+    def run_steps(what, step, st, place_batch):
+        for i in range(2):
+            batch = place_batch(data.batch(i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, batch)
+            torch.cuda.synchronize()
+            walls[what].append(time.perf_counter() - t0)
+            after[what].append((st, float(m["loss"]),
+                                float(m["grad_norm"])))
+        return st
+
+    run_steps("unsharded", make_train_step(cfg, run, opt), state,
+              lambda b: b)
+    flash_attention.flash_attention.launches = 0
+    with api.policy_scope(partition.make_policy(mesh, cfg, run)):
+        placed = partition.distribute(state, partition.make_state_shardings(
+            state, mesh, run.fsdp))
+        gsh = partition.make_param_shardings(state.params, mesh, run.fsdp)
+        bsh = partition.batch_sharding(mesh, cfg, run)
+        new = run_steps(
+            "sharded", make_train_step(cfg, run, opt, grad_shardings=gsh),
+            placed, lambda b: {k: partition.distribute(x, bsh)
+                               for k, x in b.items()})
+    launches = flash_attention.flash_attention.launches
+    print(f"  (b) {cfg.name} at {cfg.n_layers} of 24 layers, "
+          f"({run.global_batch}, {run.seq_len}) tokens in microbatches of "
+          f"{run.microbatch}, FSDP; flash launches {launches}")
+    checks = []
+    for i, ((got, loss, gnorm), (want, ref_loss, ref_gnorm)) in enumerate(
+            zip(after["sharded"], after["unsharded"])):
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        gnorm_rel = abs(gnorm - ref_gnorm) / abs(ref_gnorm)
+        worst, where = _state_err(got, want)
+        print(f"    step {i}: loss {loss:.6f} vs unsharded {ref_loss:.6f} "
+              f"(relative {loss_rel:.3e}), grad norm {gnorm:.6f} vs "
+              f"{ref_gnorm:.6f} (relative {gnorm_rel:.3e}), tolerance "
+              f"{MESH_LOSS_TOL:g}; state (parameters, m, v) worst "
+              f"{worst:.3e} of the leaf's max|x| at {where} (tolerance "
+              f"{MESH_STATE_TOL:g})")
+        if not loss_rel <= MESH_LOSS_TOL:
+            _fail(f"sharded step {i} loss off by {loss_rel:.3e}")
+        if not gnorm_rel <= MESH_LOSS_TOL:
+            _fail(f"sharded step {i} gradient norm off by {gnorm_rel:.3e}")
+        if not worst <= MESH_STATE_TOL:
+            _fail(f"sharded state after step {i} off by {worst:.3e} of "
+                  f"the leaf's max at {where}")
+        checks.append(dict(loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                           state_err=worst, state_err_at=where))
+    print(f"  step walls (host clock, {smi}): unsharded "
+          f"{walls['unsharded'][0]:.3f} / {walls['unsharded'][1]:.3f} s, "
+          f"sharded {walls['sharded'][0]:.3f} / {walls['sharded'][1]:.3f} s")
+    if launches:
+        _fail(f"the sharded training step launched the flash kernel "
+              f"{launches} times")
+    return (dict(steps=checks, flash_launches=launches, walls_s=walls),
+            state, new, run)
+
+
 def _print_ptxas(log):
     """Each kernel instance's registers, static shared memory and spills,
     from the compiler's `-Xptxas -v` report, under its name."""
@@ -2709,6 +3034,11 @@ def main() -> int:
     families = _lm_families_phase(dev, smi)
     print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 18. the language model's mesh -------------------------------------
+    t0 = time.perf_counter()
+    lm_mesh = _lm_mesh_phase(dev, smi, lm_stats)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -2829,11 +3159,16 @@ def main() -> int:
                                  train["flash_launches"],
                              **{f"{arch} generate (phase 17)":
                                 st["flash_launches"]
-                                for arch, st in families.items()}},
+                                for arch, st in families.items()},
+                             "glm4-9b sharded prefill (phase 18)":
+                                 lm_mesh["a"]["flash_launches"],
+                             "stablelm-1.6b sharded training (phase 18)":
+                                 lm_mesh["b"]["flash_launches"]},
         "shapes": flash_stats,
         "families": families,
         "lm": lm_stats,
         "train": train,
+        "lm_mesh": lm_mesh,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,14 @@ the reference's flatten order:
     leaf.
 
 `restore_checkpoint(..., device=...)` puts every restored leaf on one
-device; the reference's `sharding_tree` waits for the port's sharded
-paths.
+device; `restore_checkpoint(..., sharding_tree=...)` lays each leaf out
+with its *target* `NamedSharding` (`sharding/partition.py`) as a
+DTensor, which is what makes elastic re-meshing (restore onto a mesh of
+another shape) a pure restart-path operation.  A tree of DTensors saves
+whole: every rank gathers each leaf (`full_tensor()`, a collective, so
+every rank of the mesh calls `save_checkpoint`), rank 0 writes, and all
+meet at a barrier before the call returns.  The manifest is the same, so
+a sharded save restores unsharded and the other way round.
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.core.blockamc import ArenaPlan, FinalizedPlan, _MvmLevel
+from repro_torch.sharding.api import is_dtensor, lay_out
 
 MANIFEST = "MANIFEST.json"
 
@@ -121,7 +129,9 @@ def tree_map_with_key(fn: Callable[[str, Any], Any], tree):
 def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array; bfloat16 tensors, which numpy lacks,
     widened to float32 (exactly; either package's restore casts back to
-    the target leaf's dtype)."""
+    the target leaf's dtype); a DTensor gathered whole."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.to(torch.float32)
@@ -137,8 +147,21 @@ def save_checkpoint(directory: str, step: int, tree,
     manifest under "extra" - validation metadata (programming signatures,
     calibration thresholds) rides along with the arrays it describes.
     """
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = list(flatten(tree))
+    if any(is_dtensor(leaf) for _, leaf in leaves):
+        # every rank gathers each leaf (in one order); rank 0 writes
+        leaves = [(key, _host(leaf)) for key, leaf in leaves]
+        if torch.distributed.get_rank() == 0:
+            _write(final, leaves, step, extra)
+        torch.distributed.barrier()
+    else:
+        _write(final, leaves, step, extra)
+    return final
+
+
+def _write(final: str, leaves, step: int, extra) -> None:
+    os.makedirs(os.path.dirname(final) or ".", exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -146,7 +169,7 @@ def save_checkpoint(directory: str, step: int, tree,
     manifest: Dict[str, Any] = {"step": step, "leaves": {}}
     if extra is not None:
         manifest["extra"] = extra
-    for i, (key, leaf) in enumerate(flatten(tree)):
+    for i, (key, leaf) in enumerate(leaves):
         arr = _host(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -157,7 +180,6 @@ def save_checkpoint(directory: str, step: int, tree,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def load_manifest(directory: str, step: int) -> Dict[str, Any]:
@@ -178,18 +200,25 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, tree_like, device=None):
+def restore_checkpoint(directory: str, step: int, tree_like, device=None,
+                       sharding_tree=None):
     """Restore into the structure of `tree_like`.
 
     Every leaf comes back as a tensor with its `tree_like` leaf's dtype
     and layout, on `device` when given, else on that leaf's device (the
-    host for a non-tensor leaf).
+    host for a non-tensor leaf).  `sharding_tree`: an optional tree of
+    `NamedSharding`s matching `tree_like`; each leaf it names comes back
+    as a DTensor laid out by it, on its mesh's device type (the elastic
+    re-mesh path).  A DTensor leaf of `tree_like` with no sharding keeps
+    its own mesh and placements.
     """
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
     leaves_meta = manifest["leaves"]
     dev = None if device is None else torch.device(device)
+    target = dict(flatten(sharding_tree)) if sharding_tree is not None \
+        else {}
 
     def load(key, like):
         meta = leaves_meta.get(key)
@@ -212,17 +241,32 @@ def restore_checkpoint(directory: str, step: int, tree_like, device=None):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
                              f"vs {tuple(like.shape)}")
-        # the like leaf's dtype and memory layout (a column-major LU or
-        # inverse stays column-major, so a restored plan computes the
-        # same bits as the one that was saved)
-        out = torch.empty_like(like, device=dev)
-        return out.copy_(torch.from_numpy(arr))
+        sh = target.get(key)
+        if sh is None and is_dtensor(like):
+            mesh, place = like.device_mesh, like.placements
+        elif sh is not None:
+            mesh, place = sh.mesh, sh.placements
+        else:
+            # the like leaf's dtype and memory layout (a column-major LU
+            # or inverse stays column-major, so a restored plan computes
+            # the same bits as the one that was saved)
+            out = torch.empty_like(like, device=dev)
+            return out.copy_(torch.from_numpy(arr))
+        on = dev if dev is not None else resolve_device(mesh.device_type)
+        whole = torch.from_numpy(arr).to(dtype=like.dtype, device=on)
+        return lay_out(whole, mesh, place)
 
     return tree_map_with_key(load, tree_like)
 
 
 class CheckpointManager:
-    """Async manager: save every k steps on a worker thread, keep last n."""
+    """Async manager: save every k steps on a worker thread, keep last n.
+
+    A tree of DTensors saves as `save_checkpoint` saves it: every rank
+    calls `maybe_save` (and `wait`) at the same steps, all gather each
+    leaf, rank 0 alone writes and collects old steps, and the next
+    `wait` (which `maybe_save` makes first; a blocking save meets at
+    once) holds every rank at a barrier until the write is done."""
 
     def __init__(self, directory: str, every: int = 100, keep: int = 3):
         self.directory = directory
@@ -230,16 +274,21 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending_barrier = False
 
     def maybe_save(self, step: int, tree, blocking: bool = False) -> bool:
         if step % self.every != 0:
             return False
-        if self._error is not None:
-            raise self._error
-        self.wait()
+        self.wait()                      # meets, then raises an error
+        sharded = any(is_dtensor(leaf) for _, leaf in flatten(tree))
         # Materialise on host *before* handing to the thread so training can
         # mutate device buffers immediately (snapshot semantics).
         host_tree = tree_map_with_key(lambda _, x: np.array(_host(x)), tree)
+        self._pending_barrier = sharded
+        if sharded and torch.distributed.get_rank() != 0:
+            if blocking:
+                self._meet()
+            return True
 
         def work():
             try:
@@ -250,6 +299,7 @@ class CheckpointManager:
 
         if blocking:
             work()
+            self._meet()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
@@ -259,8 +309,15 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._meet()
         if self._error is not None:
             raise self._error
+
+    def _meet(self):
+        """The barrier a sharded save owes every rank, once."""
+        if self._pending_barrier:
+            self._pending_barrier = False
+            torch.distributed.barrier()
 
     def _gc(self):
         steps = sorted(

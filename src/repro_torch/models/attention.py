@@ -46,8 +46,33 @@ the two routes agree to reassociated rounding.
 
 There is no fallback: on the card the kernel builds and launches, or the
 call raises.  The projections stay `torch.matmul`, as the reference left
-them to XLA.  The reference's `shard(...)` annotations are dropped (with
-no sharding policy they are no-ops there too).
+them to XLA.
+
+The reference's `shard(...)` annotations stand where it has them: q on
+"act_q", the head-repeated k and v on "act_kv", and decode's updated
+cache on "act_cache"; both routes lay q, k and v out first.  With no
+policy they are the identity.  Under a policy (`sharding/api.py`) they
+are DTensors, and the attention cores run on each rank's local shards -
+DTensor's own rules for the cores' einsums and views differ between
+torch releases, and the local form is what a sharded kernel needs:
+
+- both routes (`_attend`): k and v are laid out as q is (under the
+  context-parallel rule, where k and v split the sequence, that gathers
+  them along "model": a core over a share of the keys would be silently
+  wrong), the core - the kernel or `_chunked_attend` - takes the local
+  tensors with the local rows' positions, and its output is wrapped back
+  with q's placements.  A layout that splits q's sequence or head dim
+  raises.  Projections whose features the heads do not split evenly are
+  gathered before the heads are split (`_heads`);
+- prefill lays its cache out by "act_cache", the layout decode keeps it
+  in; decode writes a DTensor cache in place shard by shard
+  (`_put_local`: each rank writes the rows and slots it holds; DTensor
+  refuses an in-place index write into a sharded tensor), and attends
+  on local shards (`_decode_attend`), combining the softmax across the
+  ranks that split the sequence as flash-decoding does.
+
+Masks, positions and constants stay plain tensors, which the policy's
+scope treats as replicated.
 
 Decode writes the new key and value into the cache in place and returns
 the same tensors: the serving loops own their caches (the reference's
@@ -56,15 +81,20 @@ stacked cache updated through per-layer views needs no re-stacking.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import einsum, init_dense, mm, rope
+from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
+                                      on_local, shard, whole)
 
 NEG_INF = -2.0 ** 30
 
@@ -90,29 +120,37 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
 def _qkv(params: Dict, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    q = mm(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = mm(x, params["wk"]).reshape(b, s, cfg.kv_heads, hd)
-    v = mm(x, params["wv"]).reshape(b, s, cfg.kv_heads, hd)
+    q = _heads(mm(x, params["wq"]), cfg.n_heads)
+    k = _heads(mm(x, params["wk"]), cfg.kv_heads)
+    v = _heads(mm(x, params["wv"]), cfg.kv_heads)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _chunked_attend(q, k, v, positions, cfg: ModelConfig,
-                    window: Optional[int], q_chunk: int) -> torch.Tensor:
+def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd).  A DTensor whose features are split
+    over mesh dims that n heads do not divide (the context-parallel case)
+    is gathered along them first, as DTensor splits no head."""
+    b, s, f = t.shape
+    if is_dtensor(t):
+        mesh, place = t.device_mesh, t.placements
+        split = [j for j, p in enumerate(place) if p.is_shard(2)]
+        if n % math.prod(mesh.size(j) for j in split):
+            t = lay_out(t, mesh, [Replicate() if p.is_shard(2) else p
+                                  for p in place])
+    return t.reshape(b, s, n, f // n)
+
+
+def _chunked_attend(q, k, v, positions, window: Optional[int],
+                    q_chunk: int) -> torch.Tensor:
     """Q-chunked causal attention core, flat-head layout.
 
-    q: (B, S, H, hd); k, v: (B, S, KV, hd) - KV heads are repeated to H
-    (query head h reads kv head h // q_per_kv).  Returns (B, S, H*hd).
+    q, k, v: (B, S, H, hd), KV heads already repeated to H.  Returns
+    (B, S, H, hd).
     """
-    b, s = q.shape[0], q.shape[1]
-    hd = q.shape[-1]
-    scale = hd ** -0.5
-    if cfg.q_per_kv > 1:
-        k = torch.repeat_interleave(k, cfg.q_per_kv, dim=2)   # (B, S, H, hd)
-        v = torch.repeat_interleave(v, cfg.q_per_kv, dim=2)
+    s = q.shape[1]
+    scale = q.shape[-1] ** -0.5
     q_chunk = min(q_chunk, s)
     assert s % q_chunk == 0, (s, q_chunk)
     outs = []
@@ -128,7 +166,7 @@ def _chunked_attend(q, k, v, positions, cfg: ModelConfig,
         scores = _mask(scores, mask)
         w = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
         outs.append(einsum("bhqs,bshd->bqhd", w, v))
-    return torch.cat(outs, dim=1).reshape(b, s, cfg.n_heads * hd)
+    return torch.cat(outs, dim=1)
 
 
 def _flash_route(use_flash: Optional[bool], window: Optional[int],
@@ -151,27 +189,56 @@ def _flash_route(use_flash: Optional[bool], window: Optional[int],
     return bool(use_flash)
 
 
+def _layout(q, k, v, cfg: ModelConfig):
+    """KV heads repeated to H (query head h reads kv head h // q_per_kv),
+    then q, k, v laid out by the policy's "act_q" / "act_kv" rules."""
+    if cfg.q_per_kv > 1:
+        k = torch.repeat_interleave(k, cfg.q_per_kv, dim=2)   # (B, S, H, hd)
+        v = torch.repeat_interleave(v, cfg.q_per_kv, dim=2)
+    return shard(q, "act_q"), shard(k, "act_kv"), shard(v, "act_kv")
+
+
 def _records_grad(*tensors) -> bool:
     """Whether autograd records through any of `tensors`."""
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
-def _flash_attend(q, k, v, cfg: ModelConfig) -> torch.Tensor:
-    """The flash route: heads folded to (B*H, S, hd), KV heads repeated,
-    one `ops.flash_attention` call.  Returns (B, S, H*hd)."""
+def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
+            window: Optional[int] = None, q_chunk: int = 1024
+            ) -> torch.Tensor:
+    """Causal attention of q (B, S, H, hd) and k, v (B, S, KV, hd) by
+    one route: `_flash_local` (one `ops.flash_attention` call) or
+    `_chunked_attend`.  KV heads are repeated and q, k, v laid out first
+    (`_layout`); DTensors are attended on each rank's local batch rows
+    and heads (module docstring).  Returns (B, S, H*hd)."""
     b, s = q.shape[0], q.shape[1]
-    hd = cfg.head_dim
-    g = cfg.q_per_kv
-    if g > 1:
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
+    q, k, v = _layout(q, k, v, cfg)
+
+    def core(q, k, v, positions):
+        if flash:
+            return _flash_local(q, k, v)
+        return _chunked_attend(q, k, v, positions, window, q_chunk)
+
+    if is_dtensor(q):           # batch rows and heads split, as q's
+        k, v = (lay_out(t, q.device_mesh, q.placements) for t in (k, v))
+        size, off = local_box(q)
+        rows = whole(positions)[off[0]:off[0] + size[0]]
+        out = on_local(core, q, k, v, rows, split=(0, 2))
+    else:
+        out = core(q, k, v, positions)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+def _flash_local(q, k, v) -> torch.Tensor:
+    """Causal attention of (B, S, H, hd) tensors through one kernel
+    call, heads folded to (B*H, S, hd); returns (B, S, H, hd)."""
+    b, s, h, hd = q.shape
 
     def fold(t):
-        return t.transpose(1, 2).reshape(b * cfg.n_heads, s, hd)
+        return t.transpose(1, 2).reshape(b * h, s, hd)
 
     out = kops.flash_attention(fold(q), fold(k), fold(v), causal=True)
-    out = out.reshape(b, cfg.n_heads, s, hd).transpose(1, 2)
-    return out.reshape(b, s, cfg.n_heads * hd)
+    return out.reshape(b, h, s, hd).transpose(1, 2).contiguous()
 
 
 def attention(params: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -184,11 +251,9 @@ def attention(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     `use_flash` picks the route (module docstring).
     """
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda,
-                    _records_grad(q, k, v)):
-        out = _flash_attend(q, k, v, cfg)
-    else:
-        out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)
+    flash = _flash_route(use_flash, window, cfg.head_dim, q.dtype,
+                         q.is_cuda, _records_grad(q, k, v))
+    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk)
     return mm(out, params["wo"])
 
 
@@ -205,12 +270,11 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
-    if _flash_route(use_flash, window, cfg.head_dim, q.dtype, q.is_cuda,
-                    _records_grad(q, k, v)):
-        out = _flash_attend(q, k, v, cfg)
-    else:
-        out = _chunked_attend(q, k, v, positions, cfg, window, q_chunk)
+    flash = _flash_route(use_flash, window, cfg.head_dim, q.dtype,
+                         q.is_cuda, _records_grad(q, k, v))
+    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk)
 
+    k, v = whole(k), whole(v)
     shape = (b, cache_len) + tuple(k.shape[2:])
     cache_k = torch.zeros(shape, dtype=cache_dtype, device=x.device)
     cache_v = torch.zeros_like(cache_k)
@@ -222,7 +286,9 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     else:
         cache_k[:, :s] = k.to(cache_dtype)
         cache_v[:, :s] = v.to(cache_dtype)
-    return mm(out, params["wo"]), {"k": cache_k, "v": cache_v}
+    cache = {"k": shard(cache_k, "act_cache"),
+             "v": shard(cache_v, "act_cache")}
+    return mm(out, params["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -265,17 +331,62 @@ def attention_decode(params: Dict, x_t: torch.Tensor, cache: Dict,
     q, k_t, v_t = _qkv(params, x_t, positions, cfg)
 
     slot_b = pos_b % cache_len if window is not None else pos_b
-    rows = torch.arange(b, device=x_t.device)
     at = slot_b.clamp(0, cache_len - 1)
     k, v = cache["k"], cache["v"]
-    k[rows, at] = k_t[:, 0].to(k.dtype)
-    v[rows, at] = v_t[:, 0].to(v.dtype)
+    if is_dtensor(k):
+        _put_local(k, at, k_t[:, 0])
+        _put_local(v, at, v_t[:, 0])
+    else:
+        rows = torch.arange(b, device=x_t.device)
+        k[rows, at] = whole(k_t[:, 0]).to(k.dtype)
+        v[rows, at] = whole(v_t[:, 0]).to(v.dtype)
 
-    g = cfg.q_per_kv
+    out = _decode_attend(q, shard(k, "act_cache"), shard(v, "act_cache"),
+                         slot_b, pos_b, cfg, window, x_t.dtype)
+    return mm(out, params["wo"]), {"k": k, "v": v}
+
+
+def _decode_attend(q, k, v, slot_b, pos_b, cfg: ModelConfig,
+                   window: Optional[int], dtype) -> torch.Tensor:
+    """One query a row against the caches k, v (B, S, KV, hd); returns
+    (B, 1, H*hd).  DTensor caches (split along batch and sequence only)
+    are attended on local shards: q joins the cache's batch split, each
+    rank scores its own slots, and where the sequence is split over
+    ranks the softmax's max and sum and the p . v products are summed
+    across them (flash-decoding's combine); on a single rank of the
+    sequence the local softmax is the plain one.  The weights are cast
+    to `dtype` (the activations') before p . v."""
+    if not is_dtensor(k):
+        return _decode_core(q, k, v, slot_b, pos_b, cfg, window, dtype, 0,
+                            k.shape[1], ())
+    mesh, place = k.device_mesh, k.placements
+    rows_place = [p if p.is_shard(0) else Replicate() for p in place]
+    size, off = local_box(k)
+    rows = slice(off[0], off[0] + size[0])
+    groups = tuple(mesh.get_group(j) for j, p in enumerate(place)
+                   if p.is_shard(1) and mesh.size(j) > 1)
+    cache_len = k.shape[1]
+
+    def core(k, v, q):
+        return _decode_core(q, k, v, whole(slot_b)[rows], whole(pos_b)[rows],
+                            cfg, window, dtype, off[1], cache_len, groups)
+    return on_local(core, k, v, lay_out(q, mesh, rows_place), split=(0, 1),
+                    place=rows_place)
+
+
+def _decode_core(q, k, v, slot_b, pos_b, cfg: ModelConfig,
+                 window: Optional[int], dtype, first: int, cache_len: int,
+                 groups) -> torch.Tensor:
+    """Decode attention of plain tensors: k, v hold cache slots
+    [first, first + k.shape[1]) of `cache_len`; `groups` are the process
+    groups the other slots lie over (none: the plain softmax)."""
+    b, hd, g = q.shape[0], cfg.head_dim, cfg.q_per_kv
     q = q.reshape(b, 1, cfg.kv_heads, g, hd)
     scores = einsum("bqkgd,bskd->bkgqs", q, k) * (hd ** -0.5)
 
-    slot_ids = torch.arange(cache_len, device=x_t.device)[None, :]  # (1, S)
+    slot_ids = torch.arange(k.shape[1], device=q.device)[None, :]
+    if first:
+        slot_ids = slot_ids + first
     if window is not None:
         # ring buffer: valid entries are the last min(pos+1, window) writes
         age = (slot_b[:, None] - slot_ids) % cache_len             # 0 = newest
@@ -283,6 +394,41 @@ def attention_decode(params: Dict, x_t: torch.Tensor, cache: Dict,
     else:
         valid = slot_ids <= pos_b[:, None]
     scores = _mask(scores, valid[:, None, None, None, :])
-    w = torch.softmax(scores.to(torch.float32), dim=-1).to(x_t.dtype)
-    out = einsum("bkgqs,bskd->bqkgd", w, v).reshape(b, 1, cfg.n_heads * hd)
-    return mm(out, params["wo"]), {"k": k, "v": v}
+    if not groups:
+        w = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
+        return einsum("bkgqs,bskd->bqkgd", w, v).reshape(
+            b, 1, cfg.n_heads * hd)
+    s32 = scores.to(torch.float32)
+    top = s32.amax(dim=-1, keepdim=True)
+    for group in groups:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s32 - top)
+    total = e.sum(dim=-1, keepdim=True)
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    out = einsum("bkgqs,bskd->bqkgd", (e / total).to(dtype), v)
+    for group in groups:
+        dist.all_reduce(out, group=group)
+    return out.reshape(b, 1, cfg.n_heads * hd)
+
+
+def _put_local(c: torch.Tensor, at: torch.Tensor, val: torch.Tensor
+               ) -> None:
+    """c[b, at[b]] = val[b] for every batch row b, in place, for a
+    DTensor cache: DTensor refuses an in-place index write into a
+    sharded tensor, so each rank writes, in its local shard, the rows it
+    holds where the slot is one it holds (no host read, no communication
+    but gathering `val` whole)."""
+    local = c.to_local()
+    size, off = local_box(c)
+    val, at = whole(val), whole(at)
+    rows = slice(off[0], off[0] + size[0])
+    tail = tuple(slice(o, o + n) for o, n in zip(off[2:], size[2:]))
+    slot = at[rows] - off[1]
+    hit = (slot >= 0) & (slot < size[1])
+    idx = slot.clamp(0, max(size[1] - 1, 0))
+    local_rows = torch.arange(size[0], device=local.device)
+    new = val[rows][(slice(None),) + tail].to(local.dtype)
+    keep = local[local_rows, idx]
+    local[local_rows, idx] = torch.where(
+        hit.reshape((-1,) + (1,) * (new.dim() - 1)), new, keep)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.serve_step import make_decode_step, make_prefill_step
+from repro_torch.sharding.api import whole
 
 
 @dataclasses.dataclass
@@ -32,7 +33,8 @@ class Engine:
         `gen` drives sampling (temperature > 0); by default a generator
         seeded 0 on the parameters' device.  As in the reference, the
         first id is the prefill's, each later one a decode step's; a
-        sequence that produced `eos_id` repeats it from then on.
+        sequence that produced `eos_id` repeats it from then on.  Under a
+        sharding policy the ids come back whole on every rank.
         """
         b, s = tokens.shape
         assert s + n_steps <= self.max_len
@@ -51,4 +53,4 @@ class Engine:
                 new_tok = torch.where(done, self.eos_id, new_tok).to(
                     torch.int32)
             tok = new_tok
-        return torch.stack(out, dim=1)              # (B, n_steps)
+        return whole(torch.stack(out, dim=1))       # (B, n_steps)

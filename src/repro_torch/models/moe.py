@@ -21,6 +21,15 @@ batches by `effective_groups`; `capacity` and `effective_groups` are the
 reference's integer arithmetic.  The Switch load-balancing loss is
 returned beside the output.
 
+Under a sharding policy whose mesh carries DTensors, the routing, the
+dispatch and the combine - integer bookkeeping DTensor has no rules for
+(sorts, `searchsorted`, scatters) - run on plain tensors whole on every
+rank (`sharding.api.whole`); the dispatch buffer and the experts' output
+are laid out by "act_gecd" (groups on the batch axes, experts on
+"model"), and the expert GEMMs run on each rank's groups and experts
+(`_experts`), as the reference's annotations place them.  What leaves a plain region is
+wrapped back as a replicated DTensor, which keeps the gradient whole.
+
 This block holds no kernel in the reference and stays plain PyTorch.
 `init_moe` draws, from one generator on its device: the router, the
 experts' gate, up and down stacks, then the shared expert (gate, up,
@@ -33,11 +42,13 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (einsum, init_dense, mm, swiglu_ffn,
                                        swiglu_ffn_init)
-from repro_torch.sharding.api import get_meta, shard
+from repro_torch.sharding.api import (get_meta, is_dtensor, lay_out,
+                                      on_local, replicated, shard, whole)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
@@ -91,8 +102,12 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
     g = effective_groups(t, get_meta("dp_groups", 1))
     tl = t // g
     cap = capacity(tl, cfg)
+    mesh = x.device_mesh if is_dtensor(x) else None
+    shared_in = x.reshape(t, d)
+    x = whole(x)
     xf = x.reshape(t, d)
-    probs, gate_w, gate_i = _route(params, xf, k)
+    probs, gate_w, gate_i = _route(dict(params, router=whole(
+        params["router"])), xf, k)
 
     # load-balancing auxiliary loss (Switch-style; global statistics)
     me = probs.mean(dim=0)
@@ -115,12 +130,11 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
     rows = torch.arange(g, device=dev)[:, None]
     buf = x.new_zeros((g, e * cap + 1, d))
     buf[rows, dest] = xg[rows, st]
-    buf = shard(buf[:, :e * cap].reshape(g, e, cap, d), "act_gecd")
+    buf = shard(replicated(buf[:, :e * cap].reshape(g, e, cap, d), mesh),
+                "act_gecd")
 
     # ---- expert computation: batched GEMMs ----
-    h = F.silu(einsum("gecd,edf->gecf", buf, params["gate"]))
-    h = h * einsum("gecd,edf->gecf", buf, params["up"])
-    y = shard(einsum("gecf,efd->gecd", h, params["down"]), "act_gecd")
+    y = whole(shard(_experts(params, buf), "act_gecd"))
 
     # ---- group-local combine ----
     yf = torch.cat([y.reshape(g, e * cap, d), y.new_zeros((g, 1, d))],
@@ -130,9 +144,29 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
     out = contrib.new_zeros((g * tl, d)).index_add_(
         0, (rows * tl + st).reshape(-1), contrib.reshape(-1, d))
 
+    out = replicated(out, mesh)
     if cfg.shared_expert:
-        out = out + swiglu_ffn(params["shared"], xf)
-    return out.reshape(b, s, d), aux
+        out = out + swiglu_ffn(params["shared"], shared_in)
+    return out.reshape(b, s, d), replicated(aux, mesh)
+
+
+def _experts(params: Dict, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on the dispatch buffer (g, E, C, d).  A DTensor
+    buffer is computed on each rank's block: the expert stacks are laid
+    out with their expert axis split as the buffer's and the rest whole,
+    and the local GEMMs' output keeps the buffer's placements."""
+    def swiglu(x, gate, up, down):
+        h = F.silu(einsum("gecd,edf->gecf", x, gate))
+        h = h * einsum("gecd,edf->gecf", x, up)
+        return einsum("gecf,efd->gecd", h, down)
+
+    if not is_dtensor(buf):
+        return swiglu(buf, params["gate"], params["up"], params["down"])
+    split = [Shard(0) if p.is_shard(1) else Replicate()
+             for p in buf.placements]
+    stacks = [lay_out(params[name], buf.device_mesh, split)
+              for name in ("gate", "up", "down")]
+    return on_local(swiglu, buf, *stacks, split=(0, 1))
 
 
 def dropped_slots(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> int:
@@ -141,6 +175,7 @@ def dropped_slots(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> int:
     t = x.shape[0] * x.shape[1]
     g = effective_groups(t, get_meta("dp_groups", 1))
     cap = capacity(t // g, cfg)
-    _, _, gate_i = _route(params, x.reshape(t, -1), cfg.top_k)
+    _, _, gate_i = _route({"router": whole(params["router"])},
+                          whole(x).reshape(t, -1), cfg.top_k)
     counts = F.one_hot(gate_i.reshape(g, -1), cfg.n_experts).sum(dim=1)
     return int((counts - cap).clamp(min=0).sum())

@@ -47,6 +47,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
@@ -57,6 +58,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mm, rms_norm, softcap, swiglu_ffn,
                                        swiglu_ffn_init)
+from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
+                                      on_local, shard, whole)
 from repro_torch.tree import tree_map
 
 
@@ -133,7 +136,8 @@ def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
         mixed = rglru_mod.rglru_forward(params["mix"], h, cfg)
     else:
         mixed = ssm_mod.ssm_forward(params["mix"], h, cfg)
-    return _ffn(params, x + mixed, cfg, is_moe)
+    x, aux = _ffn(params, shard(x + mixed, "act_btd"), cfg, is_moe)
+    return shard(x, "act_btd"), aux
 
 
 def init_block_cache(batch: int, cache_len: int, cfg: ModelConfig,
@@ -192,9 +196,7 @@ def _stack_into(dst: Optional[Dict], src: Dict, r: int, n: int) -> Dict:
     """Write repeat r of a tree into the stacked tree `dst` (allocated on
     the first repeat), so that the whole stack never exists twice."""
     if dst is None:
-        dst = tree_map(lambda x: torch.empty((n,) + tuple(x.shape),
-                                             dtype=x.dtype, device=x.device),
-                       src)
+        dst = tree_map(lambda x: _empty_stack(x, n), src)
 
     def put(d, s):
         for key, val in s.items():
@@ -204,6 +206,19 @@ def _stack_into(dst: Optional[Dict], src: Dict, r: int, n: int) -> Dict:
                 d[key][r].copy_(val)
     put(dst, src)
     return dst
+
+
+def _empty_stack(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised (n, *x.shape) stack like `x`; a DTensor's stack
+    keeps its placements on the shifted dims (each rank allocates its
+    own shard)."""
+    def empty(t):
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+    if not is_dtensor(x):
+        return empty(x)
+    return on_local(empty, x, split=range(x.dim()), place=[
+        Shard(p.dim + 1) if p.is_shard() else p for p in x.placements])
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -237,16 +252,51 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def _embed(params: Dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    """Token embeddings in the compute dtype, laid out as "act_btd".  A
+    DTensor table is looked up on its shards (`_lookup_split`)."""
     dtype = _dtype(cfg.compute_dtype)
-    if embeds is None:
-        return params["embed"][tokens.long()].to(dtype)
-    return embeds.to(dtype)
+    if embeds is not None:
+        return shard(embeds.to(dtype), "act_btd")
+    table = params["embed"]
+    if not is_dtensor(table):
+        return shard(table[tokens.long()].to(dtype), "act_btd")
+    x = shard(_lookup_split(table, whole(tokens).long(), dtype), "act_btd")
+    if any(p.is_partial() for p in x.placements):   # no rule: summed here
+        x = lay_out(x, x.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in x.placements])
+    return x
 
 
-def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _lookup_split(table: torch.Tensor, ids: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """table[ids] in `dtype` for a DTensor table (V, d), a vocab-parallel
+    embedding: each rank looks the ids (whole on every rank) up in the
+    vocabulary rows it holds, zero for the others, so the result is a
+    partial sum over the mesh dims that split the vocabulary (one rank
+    adds each value: exact in any dtype) and split along d as the table
+    is.  The reduction moves (B, S, d), never the table."""
+    size, off = local_box(table)
+
+    def lookup(t, ids):
+        local = ids - off[0]
+        hit = (local >= 0) & (local < size[0])
+        rows = t[local.clamp(0, size[0] - 1)].to(dtype)
+        return torch.where(hit[..., None], rows, 0.0)
+    place = [Partial() if p.is_shard(0) else Shard(2) if p.is_shard(1)
+             else p for p in table.placements]
+    return on_local(lookup, table, ids, split=(0, 1), place=place)
+
+
+def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+          layout: Optional[str] = None) -> torch.Tensor:
+    """Final norm, LM head (its product laid out by `layout` where the
+    reference names one), softcap."""
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return softcap(mm(x, head), cfg.logit_softcap)
+    logits = mm(x, head)
+    if layout is not None:
+        logits = shard(logits, layout)
+    return softcap(logits, cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +363,7 @@ def forward(params: Dict, cfg: ModelConfig, *,
                              is_moe, window if kind == "attn" else None,
                              use_flash=use_flash)
         aux = aux + a
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, "act_btv"), aux
 
 
 def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -333,8 +383,8 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         mixed, cache = ssm_mod.ssm_forward(params["mix"], h, cfg,
                                            return_cache=True)
-    x, aux = _ffn(params, x + mixed, cfg, is_moe)
-    return x, cache, aux
+    x, aux = _ffn(params, shard(x + mixed, "act_btd"), cfg, is_moe)
+    return shard(x, "act_btd"), cache, aux
 
 
 def prefill(params: Dict, cfg: ModelConfig, *,

@@ -1,11 +1,14 @@
 """Replica placement and mesh shapes as device counts change, as in
 `repro/runtime/elastic.py`.
 
+Elasticity is restart-path, as in the reference: on a capacity change
+the job checkpoints (or uses the last one), re-launches with a new mesh,
+and `restore_checkpoint(..., sharding_tree=)` lays every leaf out on it.
 `ElasticMesh.choose_shape` picks the best (data, model) factorisation for
 the surviving device count given the model's divisibility constraints;
-`assign_replicas` places serving replicas on the card pool round-robin.
-The reference's `make_mesh` (a `jax.sharding.Mesh`) waits for the port's
-sharded paths.
+`make_mesh` builds that ("data", "model") `DeviceMesh` over the first
+data x model ranks; `assign_replicas` places serving replicas on the card
+pool round-robin.
 """
 from __future__ import annotations
 
@@ -31,6 +34,20 @@ class ElasticMesh:
                 continue
             return (n_devices // m, m)
         return (n_devices, 1)
+
+    def make_mesh(self, devices: Optional[List[int]] = None,
+                  model_divisors: Tuple[int, ...] = (), device="cuda"):
+        """A ("data", "model") `DeviceMesh` of `choose_shape`'s shape over
+        the first data x model of `devices` (ranks of the world; default
+        every rank).  Starts a one-rank group for `device` where none
+        exists, as `launch/mesh.py` does."""
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch.launch.mesh import _world
+        dev, world = _world(device)
+        ranks = list(range(world)) if devices is None else list(devices)
+        data, model = self.choose_shape(len(ranks), model_divisors)
+        grid = torch.tensor(ranks[:data * model]).reshape(data, model)
+        return DeviceMesh(dev.type, grid, mesh_dim_names=("data", "model"))
 
     def assign_replicas(self, n_replicas: int,
                         devices: Optional[List] = None) -> List:

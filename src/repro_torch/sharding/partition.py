@@ -1,9 +1,9 @@
-"""Monte-Carlo solver sharding, as the `mc_*_specs` of
-`repro/sharding/partition.py`, and the two steps the port's sharded
-solvers take with them: a rank's share of its inputs, and the shares
-gathered back in rank order.
+"""Partitioning, as `repro/sharding/partition.py`: the language model's
+rules, and the Monte-Carlo solver's `mc_*_specs` with the two steps the
+port's sharded solvers take with them: a rank's share of its inputs, and
+the shares gathered back in rank order.
 
-A spec names, leaf by leaf, how an input lies over a 1-D mesh axis: the
+A Monte-Carlo spec names, leaf by leaf, how an input lies over a 1-D mesh axis: the
 axis name for a leaf split along its leading (key or instance) axis, None
 for a leaf every rank holds whole.  The reference hands its specs to
 `shard_map`; here each rank runs the unsharded function on its share
@@ -11,16 +11,274 @@ for a leaf every rank holds whole.  The reference hands its specs to
 the axis, so each rank ends with the whole result.  The leading axis must
 divide evenly over the mesh axis, as in the reference.
 
-The language model's specs (`param_spec` ... `batch_sharding`) are not
-ported yet (ROADMAP.md queue 1, the language model's mesh).
+The language model's rules (`param_spec` ... `batch_sharding`) are the
+reference's, path pattern -> `PartitionSpec`:
+
+  * TP over "model": projection output features, the expert axis (EP),
+    the vocabulary;
+  * optional FSDP/ZeRO over "data": the other large dim of each matrix
+    (moments follow their parameters);
+  * DP across "pod": parameters replicated, activations batch-sharded.
+
+Every rule checks divisibility against the mesh's axis sizes and falls
+back to replication rather than an uneven split (DTensor would take one;
+the port never asks it to).  A spec is the port's own `PartitionSpec`, a
+tuple with one entry a tensor dim: None, an axis name, or a tuple of axis
+names (one tensor dim split over several mesh dims, the first named
+major).  `placements(spec, mesh)` turns it into DTensor placements over a
+`DeviceMesh` with the same axis names: each mesh dim gets `Shard(i)` if
+tensor dim i names its axis, else `Replicate()`.  `NamedSharding` pairs a
+spec with its mesh, as `jax.sharding.NamedSharding` does.  A mesh here is
+a `DeviceMesh` (`launch/mesh.py`); the rules read only its axis names and
+sizes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+
+
+class PartitionSpec(tuple):
+    """How a tensor lies over a mesh, one entry a tensor dim (None, an
+    axis name or a tuple of them); trailing dims left out are whole."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a `DeviceMesh`."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def placements(spec, mesh) -> list:
+    """DTensor placements of `spec` over `mesh`: mesh dim j gets Shard(i)
+    where tensor dim i names its axis (alone or in a tuple), else
+    Replicate().  A tuple must name its axes in the mesh's order, which
+    DTensor's default order of several shards on one dim follows."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        group = ax if isinstance(ax, tuple) else (ax,)
+        where = [names.index(a) for a in group]
+        if where != sorted(where):
+            raise ValueError(f"spec {spec}: the axes {group} must come in "
+                             f"the mesh's order {tuple(names)}")
+        for j in where:
+            if not isinstance(out[j], Replicate):
+                raise ValueError(f"spec {spec} names axis {names[j]!r} "
+                                 f"twice")
+            out[j] = Shard(dim)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, as `jax.sharding.NamedSharding`."""
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+def _axis_size(mesh, name: Optional[str]) -> int:
+    return 1 if name is None else axis_size(mesh, name)
+
+
+def _ok(dim: int, mesh, axis) -> bool:
+    if axis is None:
+        return True
+    if isinstance(axis, tuple):
+        size = math.prod(_axis_size(mesh, a) for a in axis)
+    else:
+        size = _axis_size(mesh, axis)
+    return dim % size == 0
+
+
+def _spec(shape, mesh, *axes) -> PartitionSpec:
+    """A spec, dropping any axis that doesn't divide its dim."""
+    return P(*(ax if _ok(dim, mesh, ax) else None
+               for dim, ax in zip(shape, axes)))
+
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh,
+               fsdp: bool) -> PartitionSpec:
+    """Sharding rule for one parameter leaf (path uses '/' separators).
+
+    Stacked params carry a leading layer dim -> leading None.
+    """
+    dp = "data" if fsdp else None
+    shape = tuple(shape)
+    lead: Tuple = ()
+    if "blocks/" in path:                # stacked repeats: (L, ...)
+        lead = (None,)
+        shape = shape[1:]
+
+    leaf = path.split("/")[-1]
+
+    if leaf in ("embed",):               # (V, d)
+        return _spec(lead + shape, mesh, *lead, "model", dp)
+    if leaf in ("head",):                # (d, V)
+        return _spec(lead + shape, mesh, *lead, dp, "model")
+    if leaf in ("wq", "wk", "wv", "w_y", "w_u", "w_a", "w_x", "in_proj"):
+        return _spec(lead + shape, mesh, *lead, dp, "model")
+    if leaf in ("wo", "w_o", "out_proj"):
+        return _spec(lead + shape, mesh, *lead, "model", dp)
+    if leaf in ("gate", "up", "down"):
+        if len(shape) == 3:              # MoE experts: (E, d, f)
+            return _spec(lead + shape, mesh, *lead, "model", dp, None)
+        if leaf == "down":               # (f, d)
+            return _spec(lead + shape, mesh, *lead, "model", dp)
+        return _spec(lead + shape, mesh, *lead, dp, "model")
+    if leaf == "router":                 # (d, E): replicate E (small)
+        return _spec(lead + shape, mesh, *lead, dp, None)
+    if leaf == "conv_w" or shape == ():
+        return P()
+    if len(shape) == 1:                  # norms, biases, scalars
+        return _spec(lead + shape, mesh, *lead, None)
+    # default 2D: shard last dim on model if divisible
+    return _spec(lead + shape, mesh, *lead, dp, "model")
+
+
+def _with_paths(fn, tree, prefix: str = ""):
+    """`tree` (nested dicts and namedtuples) with each leaf replaced by
+    fn(path, leaf), the path its keys and field names joined by '/'."""
+    if isinstance(tree, dict):
+        return {k: _with_paths(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_with_paths(fn, v, f"{prefix}{f}/")
+                            for f, v in zip(tree._fields, tree)))
+    return fn(prefix[:-1], tree)
+
+
+def make_param_shardings(params_shape, mesh, fsdp: bool):
+    """A tree of `NamedSharding`s for a parameter tree (tensors, or
+    anything with a `.shape`, meta tensors included)."""
+    return _with_paths(lambda path, leaf: NamedSharding(
+        mesh, param_spec(path, leaf.shape, mesh, fsdp)), params_shape)
+
+
+def make_state_shardings(state_shape, mesh, fsdp: bool):
+    """TrainState shardings: moments follow their parameters; the step
+    is replicated."""
+
+    def one(path, leaf):
+        if len(leaf.shape) == 0:
+            return NamedSharding(mesh, P())
+        # strip the TrainState prefix (params/..., opt/m/..., opt/v/...)
+        parts = path.split("/")
+        if parts[0] == "params":
+            core = "/".join(parts[1:])
+        elif parts[0] == "opt" and parts[1] in ("m", "v"):
+            core = "/".join(parts[2:])
+        else:
+            core = path
+        return NamedSharding(mesh, param_spec(core, leaf.shape, mesh, fsdp))
+
+    return _with_paths(one, state_shape)
+
+
+def distribute(tree, shardings):
+    """Each tensor of `tree` (nested dicts and namedtuples) as a DTensor
+    laid out by its `NamedSharding` in `shardings`, a tree of the same
+    structure.  A plain tensor is whole on every rank, so each keeps its
+    own slice: no communication; a DTensor is redistributed."""
+    from repro_torch.sharding.api import lay_out
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute(a, b)
+                            for a, b in zip(tree, shardings)))
+    return lay_out(tree, shardings.mesh, shardings.placements)
+
+
+# ---------------------------------------------------------------------------
+# Activation rules + batch sharding
+# ---------------------------------------------------------------------------
+
+def activation_rules(mesh, model_cfg: ModelConfig,
+                     run_cfg: RunConfig) -> Dict[str, PartitionSpec]:
+    """Named activation layouts consumed by `sharding.api.shard`.
+
+    Divisibility-aware: head-sharded attention when n_heads divides the
+    model axis, otherwise context-parallel k/v (sequence dim on "model");
+    MoE dispatch buffers expert-sharded (EP) when E divides.
+    """
+    shape = mesh_axes(mesh)
+    batch_axes = tuple(a for a in ("pod", "data") if a in shape)
+    batch: Any = batch_axes if len(batch_axes) > 1 else (
+        batch_axes[0] if batch_axes else None)
+    gb = run_cfg.global_batch
+    bsize = math.prod(shape[a] for a in batch_axes)
+    if gb % max(bsize, 1):
+        batch = "data" if gb % shape.get("data", 1) == 0 else None
+    tp = shape.get("model", 1)
+
+    seq_ax = None
+    if (run_cfg.seq_shard and run_cfg.mode == "train"
+            and run_cfg.seq_len % max(tp, 1) == 0):
+        seq_ax = "model"      # Megatron-SP: LN/residual segments S-sharded
+    rules = {
+        "act_btd": P(batch, seq_ax, None),
+        "act_btv": P(batch, None, "model"),
+    }
+    if model_cfg.n_heads and model_cfg.n_heads % tp == 0:
+        rules["act_q"] = P(batch, None, "model", None)
+        rules["act_kv"] = P(batch, None, "model", None)
+    else:
+        # context parallelism: shard the sequence axis of k/v; q whole
+        # along heads
+        rules["act_q"] = P(batch, None, None, None)
+        rules["act_kv"] = P(batch, "model", None, None)
+    # decode KV cache: batch on data, sequence on model (flash-decode layout)
+    rules["act_cache"] = P(batch, "model", None, None)
+    if model_cfg.n_experts and model_cfg.n_experts % tp == 0:
+        rules["act_ecd"] = P("model", None, None)
+        # group-local MoE dispatch buffer (g, E, C, d): groups on the batch
+        # axes, experts on the TP axis
+        rules["act_gecd"] = P(batch, "model", None, None)
+    return rules
+
+
+def dp_group_count(mesh, model_cfg: ModelConfig, run_cfg: RunConfig) -> int:
+    """Number of data-parallel groups for group-local MoE dispatch."""
+    batch = activation_rules(mesh, model_cfg, run_cfg)["act_btd"][0]
+    if batch is None:
+        return 1
+    axes = batch if isinstance(batch, tuple) else (batch,)
+    return math.prod(mesh_axes(mesh)[a] for a in axes)
+
+
+def make_policy(mesh, model_cfg: ModelConfig, run_cfg: RunConfig):
+    """ShardingPolicy with the activation rules and the dp_groups hint."""
+    from repro_torch.sharding.api import ShardingPolicy
+    return ShardingPolicy(
+        mesh=mesh, rules=activation_rules(mesh, model_cfg, run_cfg),
+        meta={"dp_groups": dp_group_count(mesh, model_cfg, run_cfg)})
+
+
+def batch_sharding(mesh, model_cfg: ModelConfig,
+                   run_cfg: RunConfig) -> NamedSharding:
+    return NamedSharding(mesh,
+                         activation_rules(mesh, model_cfg, run_cfg)["act_btd"])
 
 
 def mc_solve_specs(axis_name: str = "mc"):

@@ -9,12 +9,19 @@ Microbatching (gradient accumulation) runs `global_batch // microbatch`
 forward-backward passes over consecutive slices of the batch, adding
 `g / n_micro` to a buffer in `accum_dtype`, as the reference's scan.
 
-On one device the reference's `grad_shardings` has nothing to constrain:
-it is accepted only as None, and any other value raises (the sharded
-training path waits for the port's mesh, ROADMAP.md queue 1).
+On a mesh the state's leaves are DTensors (`sharding/partition.py`'s
+`make_state_shardings` + `distribute`) and the step runs inside the
+policy's scope: the model's annotations lay activations out, DTensor
+inserts the gradient reductions.  `grad_shardings` (a tree of
+`NamedSharding`s like the parameters, from `make_param_shardings`) lays
+each gradient, the microbatch accumulator included, out as its leaf, as
+the reference's `constrain` does: the batch-axis reduction becomes a
+reduce-scatter into the parameter's shards.  The metrics come back as
+plain 0-d tensors, whole on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -24,6 +31,9 @@ from repro_torch.models import transformer as tr
 from repro_torch.numerics import over
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding.api import (is_dtensor, lay_out, mesh_ops,
+                                      replicated, whole)
+from repro_torch.sharding.partition import NamedSharding
 from repro_torch.tree import tree_leaves, tree_map
 
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
@@ -53,14 +63,19 @@ def loss_fn(params, batch: Dict, model_cfg: ModelConfig,
     """Next-token cross entropy over the padded vocabulary, masked where
     labels < 0, plus AUX_WEIGHT * aux.  The label logit is gathered: its
     sum over the vocabulary has one nonzero term, so the gather is the
-    reference's one-hot reduce exactly."""
+    reference's one-hot reduce exactly.  Logits split over the vocabulary
+    (a DTensor) take that reduce itself, which stays split."""
     logits, aux = tr.forward(params, model_cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), remat=remat)
     labels = batch["labels"]                        # (B, S) int, -1 = pad
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.clamp(min=0).long()[..., None])[..., 0]
+    target = labels.clamp(min=0).long()[..., None]
+    if is_dtensor(logits):      # vocab-split logits: the one-hot reduce
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.sum(torch.where(vocab == target, logits, 0.0), dim=-1)
+    else:
+        ll = torch.gather(logits, -1, target)[..., 0]
     mask = (labels >= 0).to(torch.float32)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     ce = torch.sum((lse - ll) * mask) / denom
@@ -77,6 +92,7 @@ def value_and_grad(params, batch: Dict, model_cfg: ModelConfig,
     flat = list(tree_leaves(diff))
     with torch.enable_grad():
         loss, metrics = loss_fn(diff, batch, model_cfg, remat)
+        loss = replicated(loss)     # one seed gradient, not one a rank
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     by_leaf = {id(p): (torch.zeros_like(p) if g is None else g)
                for p, g in zip(flat, grads)}
@@ -87,11 +103,15 @@ def value_and_grad(params, batch: Dict, model_cfg: ModelConfig,
 def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
                     grad_shardings=None):
     """Returns step(state, batch) -> (state, metrics), metrics holding
-    loss, ce, aux, grad_norm and lr_scale as device tensors."""
+    loss, ce, aux, grad_norm and lr_scale as device tensors.
+    `grad_shardings` lays every gradient out as its parameter (module
+    docstring)."""
     if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings constrains gradients over a device mesh; the "
-            "port trains on one device (the mesh slice, ROADMAP.md queue 1)")
+        bad = [sh for sh in tree_leaves(grad_shardings)
+               if not isinstance(sh, NamedSharding)]
+        if bad:
+            raise TypeError(f"grad_shardings: a tree of NamedSharding "
+                            f"like the parameters, not {bad[0]!r}")
     n_micro = 1
     if run_cfg.microbatch is not None:
         if run_cfg.global_batch % run_cfg.microbatch:
@@ -103,37 +123,50 @@ def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
     def grad_fn(params, batch):
         return value_and_grad(params, batch, model_cfg, run_cfg.remat)
 
-    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+    def constrain(grads):
+        if grad_shardings is None:
+            return grads
+        return tree_map(lambda g, sh: lay_out(g, sh.mesh, sh.placements),
+                        grads, grad_shardings)
+
+    def accumulate(state: TrainState, batch: Dict):
         if n_micro == 1:
             loss, metrics, grads = grad_fn(state.params, batch)
-        else:
-            dev = next(tree_leaves(state.params)).device
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device),
-                             state.params)
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(n_micro):
-                micro = {key: x.reshape(n_micro, x.shape[0] // n_micro,
-                                        *x.shape[1:])[i]
-                         for key, x in batch.items()}
-                l_i, _, g = grad_fn(state.params, micro)
-                with torch.no_grad():   # g / n_micro in g's dtype, as JAX
-                    for acc, x in zip(tree_leaves(grads), tree_leaves(g)):
-                        acc.add_(over(x, n_micro).to(acc_dt))
-                del g
-                loss = loss + over(l_i, n_micro)
-            metrics = {"ce": loss,
-                       "aux": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
+            return loss, metrics, constrain(grads)
+        grads = constrain(tree_map(
+            lambda p: torch.zeros_like(p, dtype=acc_dt), state.params))
+        dev = next(tree_leaves(state.params)).device
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n_micro):
+            micro = {key: x[i * (x.shape[0] // n_micro):
+                            (i + 1) * (x.shape[0] // n_micro)]
+                     for key, x in batch.items()}
+            l_i, _, g = grad_fn(state.params, micro)
+            g = constrain(g)
+            with torch.no_grad():   # g / n_micro in g's dtype, as JAX
+                for acc, x in zip(tree_leaves(grads), tree_leaves(g)):
+                    acc.add_(over(x, n_micro).to(acc_dt))
+            del g
+            loss = loss + over(l_i, n_micro)
+        metrics = {"ce": loss,
+                   "aux": torch.zeros((), dtype=torch.float32,
+                                      device=loss.device)}
+        return loss, metrics, grads
 
-        lr_scale = warmup_cosine(state.opt.step)
-        new_params, new_opt = opt.update(grads, state.opt, state.params,
-                                         lr_scale=lr_scale)
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                                   for g in tree_leaves(grads)))
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm,
-                       lr_scale=lr_scale)
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        sharded = any(is_dtensor(p) for p in tree_leaves(state.params))
+        with mesh_ops() if sharded else contextlib.nullcontext():
+            loss, metrics, grads = accumulate(state, batch)
+            lr_scale = warmup_cosine(state.opt.step)
+            new_params, new_opt = opt.update(grads, state.opt, state.params,
+                                             lr_scale=lr_scale)
+            with torch.no_grad():
+                gnorm = torch.sqrt(sum(
+                    torch.sum(torch.square(g.to(torch.float32)))
+                    for g in tree_leaves(grads)))
+            metrics = dict(metrics, loss=loss, grad_norm=gnorm,
+                           lr_scale=lr_scale)
+            metrics = {key: whole(val) for key, val in metrics.items()}
         return TrainState(new_params, new_opt), metrics
 
     return step

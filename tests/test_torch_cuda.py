@@ -1011,3 +1011,120 @@ def test_store_saved_on_the_card_restores_on_the_card(cuda, tmp_path):
     before = arena_mvm.arena_packed_apply.launches
     assert torch.equal(restored.solve(b), solver.solve(b))
     assert arena_mvm.arena_packed_apply.launches == before + 2
+
+
+def _one_rank_mesh(cuda):
+    """A one-rank NCCL ("data", "model") mesh; the caller destroys the
+    group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    assert not dist.is_initialized()
+    return make_host_mesh(1, 1, device=cuda)
+
+
+@pytest.mark.cuda
+def test_sharded_prefill_on_the_card_matches_the_host(cuda):
+    """Phase 18 (a) at 2 layers in float32: glm4-9b's layout (grouped KV
+    heads of dim 128) at a narrower width, parameters laid out by
+    `make_param_shardings` under `make_policy` on a one-rank NCCL mesh;
+    the prefill's logits (one flash launch a layer, on the local heads)
+    within 2e-4 of max|logit| of the host's unsharded prefill."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import api, partition
+    cfg = dataclasses.replace(get_config("glm4-9b"), n_layers=2,
+                              d_model=512, n_heads=8, kv_heads=2,
+                              head_dim=128, d_ff=1024, vocab=1000,
+                              param_dtype="float32", compute_dtype="float32")
+    run = RunConfig(model=cfg, mode="prefill", seq_len=256, global_batch=4)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (4, 256),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, _ = tr.prefill(params, cfg, tokens=toks)
+    mesh = _one_rank_mesh(cuda)
+    try:
+        on_card = _to(params, cuda)
+        with api.policy_scope(partition.make_policy(mesh, cfg, run)), \
+                torch.no_grad():
+            placed = partition.distribute(on_card, partition
+                                          .make_param_shardings(
+                                              on_card, mesh, False))
+            before = flash_attention.flash_attention.launches
+            got, _ = tr.prefill(placed, cfg, tokens=partition.distribute(
+                toks.to(cuda), partition.batch_sharding(mesh, cfg, run)))
+            torch.cuda.synchronize()
+            assert flash_attention.flash_attention.launches == before + 2
+            assert api.is_dtensor(got)
+            got = api.whole(got)
+    finally:
+        dist.destroy_process_group()
+    scaled_close(got.cpu(), want, 2e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_sharded_gradients_on_the_card_match_the_host(cuda):
+    """Phase 18 (b) at 2 layers in float32: stablelm-1.6b's layout at a
+    narrower width, FSDP, the parameters laid out by
+    `make_param_shardings` on a one-rank NCCL mesh under the policy;
+    loss within 1e-5 relative and every gradient leaf within 1e-4 of its
+    max|g| of the host's unsharded `value_and_grad`, with no flash
+    launch (autograd takes the chunked path)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding import api, partition
+    from repro_torch.train.train_step import value_and_grad
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2,
+                              d_model=256, n_heads=4, kv_heads=4,
+                              d_ff=512, vocab=1000, param_dtype="float32",
+                              compute_dtype="float32")
+    run = RunConfig(model=cfg, mode="train", seq_len=128, global_batch=4,
+                    microbatch=2, fsdp=True)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = SyntheticLM(cfg, run, seed=0, device="cpu").batch(0)
+    loss_h, _, g_h = value_and_grad(params, batch, cfg, "dots")
+    mesh = _one_rank_mesh(cuda)
+    try:
+        on_card = _to(params, cuda)
+        with api.policy_scope(partition.make_policy(mesh, cfg, run)):
+            placed = partition.distribute(on_card, partition
+                                          .make_param_shardings(
+                                              on_card, mesh, True))
+            bsh = partition.batch_sharding(mesh, cfg, run)
+            before = flash_attention.flash_attention.launches
+            loss_c, _, g_c = value_and_grad(
+                placed, {k: partition.distribute(v.to(cuda), bsh)
+                         for k, v in batch.items()}, cfg, "dots")
+            torch.cuda.synchronize()
+            assert flash_attention.flash_attention.launches == before
+            loss_c = float(api.whole(loss_c))
+            g_c = _whole_tree(g_c, api)
+    finally:
+        dist.destroy_process_group()
+    assert abs(loss_c - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+
+    def pairs(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                yield from pairs(a[k], b[k])
+        else:
+            yield a, b
+    for got, want in pairs(g_c, g_h):
+        scaled_close(got.cpu(), want, 1e-4)
+
+
+def _whole_tree(tree, api):
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v, api) for k, v in tree.items()}
+    return api.whole(tree)

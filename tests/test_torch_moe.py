@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import Mesh
 
 from repro.configs import get_config as j_get_config
@@ -31,8 +32,10 @@ from repro.models import moe as jmoe
 from repro.sharding import api as jshapi
 from repro_torch import interop
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.sharding import api as tshapi
+from repro_torch.sharding import partition as tpart
 from tests._hypothesis_compat import given, settings, st
 from tests.conftest import reduce_cfg
 import _torch_lm_parity as lm
@@ -176,10 +179,18 @@ def test_shard_is_the_identity_without_a_policy():
     x = torch.ones(3)
     assert tshapi.shard(x, "act_gecd") is x
     assert tshapi.get_meta("dp_groups", 5) == 5
-    with tshapi.policy_scope(tshapi.ShardingPolicy(None, {"other": 0})):
-        assert tshapi.shard(x, "act_gecd") is x
-        with pytest.raises(NotImplementedError, match="language model's mesh"):
-            tshapi.shard(x, "other")
+    assert not dist.is_initialized()
+    try:        # a name the policy binds lays x out on its mesh
+        mesh = make_host_mesh(device="cpu")
+        with tshapi.policy_scope(tshapi.ShardingPolicy(
+                mesh, {"other": tpart.P("data")})):
+            assert tshapi.shard(x, "act_gecd") is x
+            out = tshapi.shard(x, "other")
+            assert tshapi.is_dtensor(out)
+            assert torch.equal(out.full_tensor(), x)
+            assert tshapi.shard(out, "other") is out    # already laid out
+    finally:
+        dist.destroy_process_group()
 
 
 def test_aux_loss_balanced_vs_collapsed():

@@ -78,9 +78,16 @@ def test_make_mc_mesh_starts_a_one_rank_group_and_names_its_axis():
             tmesh.make_mc_mesh(2, device="cpu")
     finally:
         dist.destroy_process_group()
-    for fn in (tmesh.make_host_mesh, tmesh.make_production_mesh):
-        with pytest.raises(NotImplementedError, match="language model's mesh"):
-            fn()
+    try:        # the language model's meshes on the same one-rank world
+        m = tmesh.make_host_mesh(device="cpu")
+        assert m.mesh_dim_names == ("data", "model")
+        assert tuple(m.shape) == (1, 1)
+        for fn in (lambda: tmesh.make_host_mesh(2, 1, device="cpu"),
+                   lambda: tmesh.make_production_mesh(device="cpu")):
+            with pytest.raises(ValueError, match="the world has 1"):
+                fn()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_mc_specs_match_the_reference_layout():

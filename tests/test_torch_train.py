@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import RunConfig as JRunConfig
@@ -44,8 +45,11 @@ from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as ttr
 from repro_torch.optim.adamw import AdamW
+from repro_torch.sharding import partition as tpart
+from repro_torch.sharding.api import policy_scope
 from repro_torch.train import train_step as tts
 from repro_torch.train.trainer import Trainer
 from repro_torch.tree import tree_leaves, tree_map
@@ -269,10 +273,30 @@ def test_three_steps_losses_match_the_reference(model):
 
 
 def test_grad_shardings_other_than_none_raise(model):
+    """grad_shardings must be `NamedSharding`s; on a one-rank mesh a step
+    that lays every gradient out as its parameter is the plain step."""
     jcfg, tcfg, _ = model
-    _, trun = _runs(jcfg, tcfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    jrun, trun = _runs(jcfg, tcfg, microbatch=1)
+    with pytest.raises(TypeError, match="NamedSharding"):
         tts.make_train_step(tcfg, trun, AdamW(), grad_shardings={"w": 0})
+    _, topt, _, tstate = _states(jcfg, tcfg, jrun)
+    batch = SyntheticLM(tcfg, trun, seed=3, device="cpu").batch(0)
+    want, wm = tts.make_train_step(tcfg, trun, topt)(tstate, batch)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device="cpu")
+        with policy_scope(tpart.make_policy(mesh, tcfg, trun)):
+            placed = tpart.distribute(tstate, tpart.make_state_shardings(
+                tstate, mesh, trun.fsdp))
+            gsh = tpart.make_param_shardings(tstate.params, mesh, trun.fsdp)
+            got, gm = tts.make_train_step(tcfg, trun, topt,
+                                          grad_shardings=gsh)(placed, batch)
+    finally:
+        dist.destroy_process_group()
+    assert float(gm["loss"]) == float(wm["loss"])
+    assert all(type(v) is torch.Tensor for v in gm.values())
+    for key, g, w in _pairs(got.params, want.params):
+        assert torch.equal(g.full_tensor(), w), key
 
 
 # ------------------------------ the trainer --------------------------------
