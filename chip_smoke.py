@@ -12,9 +12,10 @@ rows, the example's path (`examples/solve_linear_system.py`), the
 language-model serving path (glm4-9b prefill and decode), the training
 path with the BlockAMC preconditioner (stablelm-1.6b), the Monte-Carlo
 mesh (the `*_sharded` solvers on a one-rank NCCL group), the MoE,
-RG-LRU and SSD model families and the language model's mesh (DTensor
-serving and training on a one-rank NCCL group).  Phases (every check raises; nothing is
-caught):
+RG-LRU and SSD model families, the language model's mesh (DTensor
+serving and training on a one-rank NCCL group) and the dry run of
+production cells on fake 256- and 512-rank worlds.  Phases (every check
+raises; nothing is caught):
 
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
   2. build the kernels (one nvcc per source, in parallel), with each
@@ -71,7 +72,9 @@ caught):
      route check), (32, 8192, 128) bf16, (8, 1000, 64) f32 (ragged) and
      (16, 1024, 128) f32 non-causal, timed
      beside the plain version and `scaled_dot_product_attention`, with the
-     ratio of the kernel's time to the latter's;
+     ratio of the kernel's time to the latter's; the kernel's op
+     (`torch.ops.repro_torch.flash_attention`) bit for bit against the
+     launch alone, and the host's microseconds a call through each;
  12. the language-model serving path at glm4-9b's full width and depth
      (bf16, random weights from a seeded CUDA generator):
      `Engine.generate` of 32 greedy tokens after a (4, 1024) prompt (40
@@ -79,7 +82,8 @@ caught):
      `ContinuousBatchingEngine` serving 6 requests over 4 slots, the two
      attention routes compared in bf16 (information) and, in a 2-layer
      float32 glm4-9b, the prefill logits through the kernel against the
-     chunked path (2e-4 of max|logit|);
+     chunked path (2e-4 of max|logit|); one (4, 1024) prefill under
+     `FlopCounterMode` with its peak memory, for phase 19;
  13. the maintained serving path: Fig. 8's service (16 tenants x 8 rhs)
      with retention drift (drift_nu 0.05) through three waves of the
      maintenance cycle on a `DeviceClock` - age every plan
@@ -116,7 +120,8 @@ caught):
      full width, gradients and one `make_train_step` on the card against
      the host (1e-4 of max|g|, loss 1e-5), remat "dots" / "full" against
      "none" (1e-6); a trainer saved at step 2 and resumed on the card at
-     host scale reproduces the uninterrupted losses (1e-6);
+     host scale reproduces the uninterrupted losses (1e-6); one more step
+     under `FlopCounterMode` (out of the median), for phase 19;
  16. the Monte-Carlo mesh on a one-rank NCCL group (`make_mc_mesh`):
      Fig. 7's sweep at its largest size (n=512, one stage, 256x256
      arrays, sigma 0.05, 40 simulations) through
@@ -150,6 +155,17 @@ caught):
      a one-rank "pod" axis; the state saved sharded and restored with
      `sharding_tree` bit for bit; `pipeline_apply` on a one-rank "pp"
      axis against the stack;
+ 19. the dry run (`launch/dryrun.py`) on the card's host, each cell
+     traced as rank 0 of a fake world on fake tensors in a process of
+     its own, in parallel: stablelm-1.6b train_4k, glm4-9b prefill_32k
+     (40 calls of the attention op's fake implementation) and
+     mamba2-130m decode_32k on 16x16 (256 ranks) and 2x16x16 (512), the
+     BlockAMC solver at n=2048, one stage - each with its dominant
+     roofline term, the three terms, FLOPs, bytes, collective bytes a
+     chip, peak and seconds; and one-rank traces of phase 15's step and
+     phase 12's prefill against the card: FLOPs equal to
+     `FlopCounterMode`'s to 1e-6, peak within 15%, each measured wall at
+     least its compute term;
   then one JSON line describing each ported kernel, and the last line:
   {"ok": true, "device": {...}}.
 
@@ -1587,9 +1603,50 @@ def _flash_phase(dev):
                             plain_ms=plain_ms, library_ms=lib_ms,
                             library_ratio=ms / lib_ms,
                             bound_ms=bound_ms, bound_by=bound_by)
+        if label == "serving prefill":      # the op against the launch
+            if not torch.equal(out, _flash_launch(ops, q, k, v, causal)):
+                _fail(f"{what}: the op's output differs from the launch's")
         del q, k, v, out
         torch.cuda.empty_cache()
+    stats["host_us"] = _flash_host_us(ops, gen, dev)
     return stats
+
+
+def _flash_launch(ops, q, k, v, causal):
+    """The wrapper's route before the kernel became the op
+    `torch.ops.repro_torch.flash_attention`: its checks, then the launch
+    (`ops._flash_cuda`, the op's CUDA implementation), with no dispatch."""
+    for x in (q, k, v):
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(x.dtype)
+    if not causal and q.shape[1] % 128:
+        raise ValueError("non-causal flash requires S % 128 == 0")
+    return ops._flash_cuda(q, k, v, causal)
+
+
+def _flash_host_us(ops, gen, dev, calls=2000):
+    """The host's microseconds a call, through the op and through the
+    launch alone (`_flash_launch`), at (1, 128, 64) bf16 where the host
+    sets the pace; in turns launch, op, op, launch."""
+    q, k, v = (torch.randn((1, 128, 64), generator=gen, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    routes = {"launch": lambda: _flash_launch(ops, q, k, v, True),
+              "op": lambda: ops.flash_attention(q, k, v, causal=True)}
+    out = {"launch": [], "op": []}
+    for name in ("launch", "op", "op", "launch"):
+        for _ in range(50):
+            routes[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            routes[name]()
+        out[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    print(f"  host cost a call at (1, 128, 64) bf16: through the op "
+          f"{out['op'][0]:.2f} / {out['op'][1]:.2f} us, the launch alone "
+          f"(the route before the op) {out['launch'][0]:.2f} / "
+          f"{out['launch'][1]:.2f} us")
+    return out
 
 
 def _device_busy_ms(fn, top=0):
@@ -1629,6 +1686,31 @@ def _device_busy_ms(fn, top=0):
     del prof, spans
     gc.collect()
     return wall, busy, ops
+
+
+def _nbytes(tree) -> int:
+    """Bytes of the tensors among a pytree's leaves."""
+    from torch.utils._pytree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def _counted_call(fn, arg_bytes: int) -> dict:
+    """FLOPs of one fn() under `FlopCounterMode`, and its peak memory: the
+    card's `max_memory_allocated` over the call less what was resident
+    beside its arguments (`arg_bytes`) before it - the figure the dry
+    run's trace gives as its peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    del out
+    return dict(flops=float(counter.get_total_flops()), peak_bytes=peak)
 
 
 def _lm_phase(dev):
@@ -1722,6 +1804,13 @@ def _lm_phase(dev):
                  if busy is None else
                  f"{busy:.1f} ms ({1 - busy / wall:.1%} idle)"))
     del cache
+    counted = _counted_call(lambda: make_prefill_step(cfg, s)(
+        params, {"tokens": prompts}), n_bytes + prompts.numel()
+        * prompts.element_size())
+    print(f"  one prefill (cache_len {s}) under FlopCounterMode: "
+          f"{counted['flops']:.6e} FLOPs (the attention kernel's by its "
+          f"registered formula), peak {counted['peak_bytes'] / 1e9:.3f} GB "
+          f"(its arguments and what it allocates)")
 
     # continuous batching: 6 requests of mixed prompt lengths, 4 slots
     rng = np.random.default_rng(12)
@@ -1773,6 +1862,8 @@ def _lm_phase(dev):
     del params2
     torch.cuda.empty_cache()
     return launches, dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_ms,
+                          prefill_flops=counted["flops"],
+                          prefill_peak_bytes=counted["peak_bytes"],
                           generate_s=gen_wall, cb_s=cb_wall,
                           profiled=profiled,
                           route_err=err, bf16_agree=agree)
@@ -1882,6 +1973,12 @@ def _train_phase(dev, root):
         trainer.state, metrics = trainer.step_fn(trainer.state, batch)
         float(metrics["loss"])
     wall_ms, busy_ms, top_ops = _device_busy_ms(one_step, top=10)
+    counted = _counted_call(lambda: trainer.step_fn(trainer.state, batch),
+                            _nbytes((trainer.state, batch)))
+    print(f"  one more step under FlopCounterMode (not in the median): "
+          f"{counted['flops']:.6e} FLOPs, peak "
+          f"{counted['peak_bytes'] / 1e9:.3f} GB (its arguments and what "
+          f"it allocates)")
     flops, chunked_flops = _train_flops(cfg, n_params, tokens, run.seq_len)
     bound_s = flops / BF16_FLOP_PER_S
     chunked_s = chunked_flops / BF16_FLOP_PER_S
@@ -2083,6 +2180,8 @@ def _train_phase(dev, root):
         _fail("the resumed run does not reproduce the uninterrupted one")
     return dict(losses=hist["loss"], step_dt=hist["dt"], step_s=step_s,
                 tokens_per_s=tokens / step_s, peak_gb=peak_gb,
+                counted_flops=counted["flops"],
+                counted_peak_bytes=counted["peak_bytes"],
                 profiled_wall_ms=wall_ms, busy_ms=busy_ms, top_ops=top_ops,
                 flops=flops, chunked_flops=chunked_flops,
                 bound_s=bound_s, bound_share=bound_s / step_s,
@@ -2731,6 +2830,132 @@ def _mesh_train(dev, smi, mesh):
             state, new, run)
 
 
+# Phase 19's cells (the dry run, `launch/dryrun.py`): production cells on
+# a fake 256-rank world (2x16x16: 512), and two traces on a fake one-rank
+# mesh of the steps that phases 15 and 12 run on the card.
+DRYRUN_CELLS = {
+    "stablelm-1.6b train_4k": ("lm", dict(arch="stablelm-1.6b",
+                                          shape_key="train_4k")),
+    "phase 15's step, one rank": ("lm", dict(
+        arch=TRAIN_ARCH, shape_key="train_4k", mesh_shape=(1, 1),
+        run=TRAIN_SHAPE)),
+    "glm4-9b prefill_32k": ("lm", dict(arch="glm4-9b",
+                                       shape_key="prefill_32k")),
+    "phase 12's prefill, one rank": ("lm", dict(
+        arch="glm4-9b", shape_key="prefill_32k", mesh_shape=(1, 1),
+        run=dict(mode="prefill", seq_len=1024, global_batch=4))),
+    "mamba2-130m decode_32k": ("lm", dict(arch="mamba2-130m",
+                                          shape_key="decode_32k")),
+    "mamba2-130m decode_32k, 2x16x16": ("lm", dict(
+        arch="mamba2-130m", shape_key="decode_32k", multi_pod=True)),
+    "BlockAMC solver n=2048 s=1": ("solver", dict(n=2048, stages=1)),
+}
+DRYRUN_FLOP_TOL = 1e-6   # a trace's FLOPs vs FlopCounterMode's on the card:
+#                          the same ops counted by the same formulas
+DRYRUN_PEAK_TOL = 0.15   # a trace's peak vs the card's: the allocator's
+#                          rounding and workspaces, DTensor's one-rank copies
+
+
+def _dryrun_cell(spec):
+    """One dry-run cell, run in a process of its own (phase 19: a fake
+    world is one a process).  Returns the cell's report with the
+    process's seconds, or the traceback under "error"."""
+    kind, kw = spec
+    t0 = time.perf_counter()
+    try:
+        from repro_torch.launch import dryrun
+        if kind == "solver":
+            report = dryrun.lower_solver_cell(**kw)
+        else:
+            kw = dict(kw)
+            run = kw.pop("run", None)
+            if run is not None:
+                from repro_torch.configs import get_config
+                from repro_torch.configs.base import RunConfig
+                kw["run_override"] = RunConfig(model=get_config(kw["arch"]),
+                                               **run)
+            report = dryrun.lower_cell(**kw)
+    except Exception:
+        import traceback
+        report = {"error": traceback.format_exc()}
+    report["process_s"] = time.perf_counter() - t0
+    return report
+
+
+def _dryrun_phase(smi, lm_stats, train):
+    """Phase 19: the dry run (`launch/dryrun.py`) on the card's host, each
+    cell traced as rank 0 of a fake world on fake "cuda" tensors (no
+    allocation, no launch), the cells in parallel processes.  (a) The
+    production cells `DRYRUN_CELLS` names: each prints its dominant
+    roofline term, the three terms, FLOPs, bytes and collective bytes a
+    chip, its peak and its seconds; glm4-9b's prefill_32k reaches the
+    attention op's fake implementation once a layer.  (b) The card
+    against the analysis: the one-rank traces of phase 15's training step
+    and phase 12's prefill count the FLOPs `FlopCounterMode` counted on
+    the card to DRYRUN_FLOP_TOL, their peak is within DRYRUN_PEAK_TOL of
+    the card's, and each measured wall is at least its compute term.
+    Returns the reports."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+    print(f"phase 19: the dry run on fake worlds, {len(DRYRUN_CELLS)} "
+          f"cells in parallel processes (fake tensors: no card) ({smi})")
+    workers = max(1, min(len(DRYRUN_CELLS), (os.cpu_count() or 2) - 1))
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(max_workers=workers,
+                                mp_context=mp.get_context("spawn")) as pool:
+        futures = {label: pool.submit(_dryrun_cell, spec)
+                   for label, spec in DRYRUN_CELLS.items()}
+        reports = {label: f.result() for label, f in futures.items()}
+    print(f"  {workers} processes, {time.perf_counter() - t0:.1f} s")
+    for label, r in reports.items():
+        if "error" in r:
+            _fail(f"dry run {label}: {r['error']}")
+        terms = r["roofline"]
+        print(f"  {label} on {r['mesh']} ({r['n_chips']} chips, "
+              f"{r['device']}): dominant {r['dominant']}; compute "
+              f"{terms['compute_s']:.4e} s, memory {terms['memory_s']:.4e} "
+              f"s, collective {terms['collective_s']:.4e} s; a chip "
+              f"{r['flops_per_chip']:.6e} FLOPs, {r['bytes_per_chip']:.4e} "
+              f"bytes, {r['collective_bytes_per_chip']:.4e} collective "
+              f"bytes; peak {r['memory']['peak_bytes'] / 1e9:.3f} GB; "
+              f"trace {r['compile_s']} s, {r['process_s']:.1f} s in its "
+              f"process")
+        if not (r["flops_per_chip"] > 0 and r["dominant"]):
+            _fail(f"dry run {label}: no FLOPs or no dominant term")
+    calls = reports["glm4-9b prefill_32k"]["flash_calls"]
+    print(f"  glm4-9b prefill_32k: {calls} calls of the attention op's fake "
+          f"implementation")
+    if calls != 40:
+        _fail(f"glm4-9b prefill_32k reached the attention op {calls} "
+              f"times, expected 40 (one a layer)")
+    checks = (("phase 15's step, one rank", "training step",
+               train["counted_flops"], train["peak_gb"] * 1e9,
+               train["step_s"]),
+              ("phase 12's prefill, one rank", "prefill",
+               lm_stats["prefill_flops"], lm_stats["prefill_peak_bytes"],
+               lm_stats["prefill_ms"] / 1e3))
+    for label, what, flops, peak, wall in checks:
+        r = reports[label]
+        rel = abs(r["flops_per_chip"] - flops) / flops
+        traced = r["memory"]["peak_bytes"]
+        off = traced / peak - 1
+        compute_s = r["roofline"]["compute_s"]
+        print(f"  (b) the {what}: trace {r['flops_per_chip']:.6e} FLOPs vs "
+              f"the card's FlopCounterMode {flops:.6e} ({rel:.2e} "
+              f"relative, tolerance {DRYRUN_FLOP_TOL:g}); peak "
+              f"{traced / 1e9:.3f} GB vs {peak / 1e9:.3f} GB ({off:+.1%}, "
+              f"tolerance {DRYRUN_PEAK_TOL:.0%}); measured {wall:.4f} s vs "
+              f"compute term {compute_s:.4f} s ({compute_s / wall:.1%})")
+        if not rel <= DRYRUN_FLOP_TOL:
+            _fail(f"the {what}'s trace counts {rel:.2e} off the card's")
+        if not abs(off) <= DRYRUN_PEAK_TOL:
+            _fail(f"the {what}'s traced peak is {off:+.1%} off the card's")
+        if not wall >= compute_s:
+            _fail(f"the {what} ran faster than its compute term")
+    return reports
+
+
 def _print_ptxas(log):
     """Each kernel instance's registers, static shared memory and spills,
     from the compiler's `-Xptxas -v` report, under its name."""
@@ -3039,6 +3264,11 @@ def main() -> int:
     lm_mesh = _lm_mesh_phase(dev, smi, lm_stats)
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 19. the dry run ------------------------------------------------------
+    t0 = time.perf_counter()
+    dryrun = _dryrun_phase(smi, lm_stats, train)
+    print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+
     # -- the kernels line ---------------------------------------------------
     main = stats["main path"]
     kernels = [{
@@ -3169,6 +3399,10 @@ def main() -> int:
         "lm": lm_stats,
         "train": train,
         "lm_mesh": lm_mesh,
+        "dryrun": {label: {key: r[key] for key in (
+            "mesh", "n_chips", "flops_per_chip", "bytes_per_chip",
+            "collective_bytes_per_chip", "roofline", "dominant", "memory",
+            "compile_s", "process_s")} for label, r in dryrun.items()},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

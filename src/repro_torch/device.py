@@ -14,8 +14,14 @@ def resolve_device(device) -> torch.device:
     measure the card measure the host instead.
     A bare "cuda" resolves to the current card's index, so devices
     compare equal to those of the tensors made on them.
+
+    Under a `FakeTensorMode` (the dry run, `launch/dryrun.py`) a "cuda"
+    tensor holds no memory and launches nothing, so "cuda" resolves
+    without a card (a bare "cuda" to index 0).
     """
     dev = torch.device(device)
+    if dev.type == "cuda" and _faking():
+        return dev if dev.index is not None else torch.device("cuda", 0)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -24,6 +30,12 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _faking() -> bool:
+    """Whether a `FakeTensorMode` is active: tensors made now are fake."""
+    from torch._guards import detect_fake_mode
+    return detect_fake_mode() is not None
 
 
 def device_scope(device):

@@ -15,6 +15,7 @@ positions and are never padded either.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import arena_mvm as _arena
 from repro_torch.kernels import banded_solve as _banded
@@ -167,10 +168,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
     the card).  A non-causal call needs S % 128 == 0, as the JAX wrapper's.
 
     On the CPU this is the kernel's function evaluated by the plain
-    version on float32 copies, cast back to q's dtype (any D); on the card
-    the kernel, which takes D in (64, 128) and raises on any other, and
-    refuses tensors that require grad (`models/attention.py` routes a
-    differentiated attention to its chunked path).
+    version on float32 copies, cast back to q's dtype (any D).  Any other
+    tensor goes through the op `torch.ops.repro_torch.flash_attention`:
+    on the card the kernel, which takes D in (64, 128) and raises on any
+    other, and refuses tensors that require grad (`models/attention.py`
+    routes a differentiated attention to its chunked path); under a
+    `FakeTensorMode` the op's fake implementation, which gives the
+    output's shape and dtype with no build and no launch, so that the dry
+    run (`launch/dryrun.py`) traces the default route and counts its FLOPs
+    with the formula registered here.
     """
     for x in (q, k, v):
         if x.dtype not in _flash.DTYPES:
@@ -184,6 +190,18 @@ def flash_attention(q, k, v, *, causal: bool = True):
                                         causal=causal).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+# The attention kernel as an operator of the "repro_torch" namespace: a
+# CUDA implementation (the launch), a fake one (the output's shape and
+# dtype, for tensors under a FakeTensorMode) and a FLOP formula.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal) "
+            "-> Tensor")
+
+
+def _flash_cuda(q, k, v, causal):
     _refuse_grad("flash_attention", q, k, v)
 
     def ready(x):       # one dtype, contiguous, 16-byte aligned
@@ -192,3 +210,24 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
     return _flash.flash_attention(ready(q), ready(k), ready(v),
                                   causal=causal)
+
+
+def _flash_fake(q, k, v, causal):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+_LIB.impl("flash_attention", _flash_cuda, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention", _flash_fake,
+                            lib=_LIB)
+
+
+def flash_flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    """FLOPs of one attention call: 4*BH*D per live (row, key) pair,
+    S(S+1)/2 of them causal and S^2 full (the two products q.k^T and p.v,
+    two FLOPs a multiply-add each)."""
+    bh, s, d = q_shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * bh * d * pairs
+
+
+register_flop_formula(torch.ops.repro_torch.flash_attention)(flash_flops)

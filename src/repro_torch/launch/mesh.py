@@ -13,6 +13,12 @@ runs the sharded paths as a mesh of one; the caller destroys it
 group is the caller's to start, with its address, world size and rank.
 A mesh spans the whole world: a world of another size raises, never a
 smaller mesh.  NCCL takes one rank a card.
+
+A "fake" world (a "fake" process group: ranks that exist in name only,
+as the dry run starts, `launch/dryrun.py`) touches no card: its mesh is
+built for the device type asked, "cuda" included, on a host without one.
+A real world resolves its device (`device.resolve_device`), which raises
+for an absent card.
 """
 from __future__ import annotations
 
@@ -28,7 +34,10 @@ from repro_torch.device import resolve_device
 def _world(device):
     """The world's size, starting a one-rank group for `device` (NCCL on
     the card, gloo on the host) over an in-process store if none exists,
-    and pinning this rank's card."""
+    and pinning this rank's card.  A fake world's device is taken as
+    asked, with no card touched (module docstring)."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return torch.device(device), dist.get_world_size()
     dev = resolve_device(device)
     if not dist.is_initialized():
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",

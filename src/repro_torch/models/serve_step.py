@@ -1,6 +1,7 @@
 """Serving steps, as `repro/models/serve_step.py`: prefill of a prompt
 batch and one decode step against a cache.  PyTorch runs them eagerly;
-there is nothing to jit."""
+there is nothing to jit.  Greedy picks go through `sharding.api.argmax`,
+which takes logits split over the vocabulary on each rank's shard."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -9,6 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
+from repro_torch.sharding.api import argmax
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
@@ -18,7 +20,7 @@ def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
         logits, cache = tr.prefill(
             params, cfg, tokens=batch.get("tokens"),
             embeds=batch.get("embeds"), cache_len=cache_len)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = argmax(logits).to(torch.int32)
         return next_tok, cache
 
     return prefill_step
@@ -39,7 +41,7 @@ def make_decode_step(cfg: ModelConfig, temperature: float = 0.0):
                                   dim=-1)
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         else:
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = argmax(logits)
         return nxt.to(torch.int32), cache
 
     return decode_step

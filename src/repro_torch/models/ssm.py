@@ -27,10 +27,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, mm, rms_norm
+from repro_torch.sharding.api import is_dtensor, lay_out, on_local, whole
 
 
 def _dims(cfg: ModelConfig):
@@ -162,25 +164,50 @@ def init_ssm_cache(batch: int, cfg: ModelConfig, dtype=torch.float32,
 def ssm_decode(params: Dict, x_t: torch.Tensor, cache: Dict,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One token.  x_t: (B, 1, d).  Updates `cache` in place and returns
-    (out, cache)."""
-    b = x_t.shape[0]
+    (out, cache).  A DTensor cache runs on each rank's batch rows: the
+    state, its conv history and the projections are laid out by the
+    state's batch split (a cache laid out otherwise is written back
+    after), and the recurrence runs on local tensors (DTensor's einsum
+    rules would split the heads over the model axis unevenly)."""
+    z, xs, bc, dt = _split_proj(params, x_t, cfg)
+    state, conv = cache["state"], cache["conv"]
+    weights = [params[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip")]
+    if is_dtensor(state):
+        mesh = state.device_mesh
+        rows = [p if p.is_shard(0) else Replicate() for p in state.placements]
+        st, cv = (lay_out(t, mesh, rows) for t in (state, conv))
+        y = on_local(_decode_core, st, cv,
+                     *(lay_out(t, mesh, rows) for t in (xs, bc, dt)),
+                     *(whole(w) for w in weights), cfg, split=(0,),
+                     place=rows)
+        for dst, src in ((state, st), (conv, cv)):
+            if src is not dst:      # a cache laid out otherwise
+                dst.copy_(src)
+    else:
+        y = _decode_core(state, conv, xs, bc, dt, *weights, cfg)
+    y = rms_norm(y.to(x_t.dtype) * F.silu(z), params["norm_w"], cfg.norm_eps)
+    return mm(y, params["out_proj"]), cache
+
+
+def _decode_core(state, conv, xs, bc, dt, conv_w, dt_bias, a_log, d_skip,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The decode recurrence of plain tensors: the conv history and the
+    state updated in place; returns y (B, 1, d_inner) in float32 before
+    the gated norm."""
+    b = xs.shape[0]
     d_inner, h, p, n = _dims(cfg)
     f32 = torch.float32
-    z, xs, bc, dt = _split_proj(params, x_t, cfg)
-    hist = torch.cat([cache["conv"], torch.cat([xs, bc], dim=-1)], dim=1)
-    conv_out = F.silu(torch.sum(hist * params["conv_w"][None], dim=1,
-                                keepdim=True))
+    hist = torch.cat([conv, torch.cat([xs, bc], dim=-1)], dim=1)
+    conv_out = F.silu(torch.sum(hist * conv_w[None], dim=1, keepdim=True))
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
     xh = xs.reshape(b, h, p)
-    dt_t = F.softplus(dt[:, 0].to(f32) + params["dt_bias"])   # (B, H)
-    decay = torch.exp(dt_t * -torch.exp(params["a_log"]))      # (B, H)
+    dt_t = F.softplus(dt[:, 0].to(f32) + dt_bias)             # (B, H)
+    decay = torch.exp(dt_t * -torch.exp(a_log))                # (B, H)
     xbar = xh.to(f32) * dt_t[..., None]
     upd = torch.einsum("bn,bhp->bhpn", bmat[:, 0].to(f32), xbar)
-    state = cache["state"] * decay[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].to(f32), state)
-    y = y + params["d_skip"][:, None] * xh.to(f32)
-    y = y.reshape(b, 1, d_inner).to(x_t.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    cache["state"].copy_(state)
-    cache["conv"].copy_(hist[:, 1:, :])
-    return mm(y, params["out_proj"]), cache
+    new_state = state * decay[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].to(f32), new_state)
+    y = y + d_skip[:, None] * xh.to(f32)
+    state.copy_(new_state)
+    conv.copy_(hist[:, 1:, :])
+    return y.reshape(b, 1, d_inner)

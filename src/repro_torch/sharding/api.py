@@ -28,8 +28,9 @@ an in-place cache write), the model runs it on each rank's shards:
 `on_local` checks the split, unwraps, runs and wraps the result back,
 and `local_box` says which block of the global tensor a rank holds.
 The DTensor internals the port relies on (the dispatcher's
-implicit-replication switch, the local-shape helper) are reached from
-this module only.
+implicit-replication switch, the local-shape helper, the shape
+propagation `shape_propagation` marks) are reached from this module
+only.
 """
 from __future__ import annotations
 
@@ -93,6 +94,33 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def is_dtensor_type(cls) -> bool:
+    """Whether `cls` (a type a dispatch mode is handed) is DTensor's."""
+    return issubclass(cls, DTensor)
+
+
+@contextlib.contextmanager
+def shape_propagation(hook):
+    """Inside, DTensor's propagation of an op's output shape - it runs a
+    fake copy of the op on global shapes - runs within the context
+    `hook()` returns, so that a dispatch mode can tell those ops from the
+    rank's own work (`launch/hlo_analysis.py`)."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta")
+                if hasattr(ShardingPropagator, n))
+    inner = ShardingPropagator.__dict__[name]
+
+    def hooked(self, *args, **kwargs):
+        with hook():
+            return inner(self, *args, **kwargs)
+    setattr(ShardingPropagator, name, hooked)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, inner)
+
+
 def lay_out(x: torch.Tensor, mesh, placements) -> torch.Tensor:
     """`x` as a DTensor on `mesh` with `placements`: a DTensor is
     redistributed; a plain tensor, whole on every rank, keeps each rank's
@@ -125,11 +153,24 @@ def whole(x: torch.Tensor) -> torch.Tensor:
 
 def local_box(x) -> tuple:
     """(shape, offset) of this rank's shard of the DTensor `x`: the block
-    [offset, offset + shape) of the global tensor."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    return compute_local_shape_and_global_offset(x.shape, x.device_mesh,
-                                                 x.placements)
+    [offset, offset + shape) of the global tensor.  An even split (every
+    split the port makes) is worked out from the mesh coordinate alone,
+    with no tensor op, so that it also runs under a `FakeTensorMode` (the
+    dry run); an uneven one is DTensor's own."""
+    mesh, place = x.device_mesh, x.placements
+    size, off = list(x.shape), [0] * x.dim()
+    coord = mesh.get_coordinate()
+    for j, p in enumerate(place):
+        if not p.is_shard():
+            continue
+        if size[p.dim] % mesh.size(j):
+            from torch.distributed.tensor._utils import \
+                compute_local_shape_and_global_offset
+            return compute_local_shape_and_global_offset(x.shape, mesh,
+                                                         place)
+        size[p.dim] //= mesh.size(j)
+        off[p.dim] += coord[j] * size[p.dim]
+    return tuple(size), tuple(off)
 
 
 def on_local(fn, x: DTensor, *others, split, place=None) -> DTensor:
@@ -149,6 +190,26 @@ def on_local(fn, x: DTensor, *others, split, place=None) -> DTensor:
     return DTensor.from_local(out, x.device_mesh,
                               x.placements if place is None else place,
                               run_check=False)
+
+
+def argmax(x: torch.Tensor) -> torch.Tensor:
+    """torch.argmax over the last dim.  A DTensor split along it is
+    reduced on each rank's shard: the shard's first largest value and its
+    global index, gathered along the split (one pair a row a rank), then
+    the first of the largest, as `torch.argmax` takes it; the result is
+    whole on every rank.  DTensor's own rule for it differs between torch
+    releases and reads offsets back from tensors, which no fake tensor
+    holds."""
+    last = x.dim() - 1
+    if not is_dtensor(x) or not any(p.is_shard(last) for p in x.placements):
+        return torch.argmax(x, dim=-1)
+    _, off = local_box(x)
+    val, idx = torch.max(x.to_local(), dim=-1, keepdim=True)
+    vals, idxs = (whole(DTensor.from_local(t, x.device_mesh, x.placements,
+                                           run_check=False))
+                  for t in (val, idx + off[last]))
+    pick = torch.argmax(vals, dim=-1, keepdim=True)
+    return torch.gather(idxs, -1, pick)[..., 0]
 
 
 def shard(x: torch.Tensor, name: str) -> torch.Tensor:

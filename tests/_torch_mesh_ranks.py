@@ -198,7 +198,8 @@ def check_decode(mesh, inputs):
     params = state_from(inputs, "dense").params
     tokens = SyntheticLM(cfg, run, seed=3, device="cpu").batch(0)["tokens"]
     prompt = tokens[:, :16]
-    out = {"err": 0.0, "ids_equal": True}
+    out = {"err": 0.0, "ids_equal": True, "argmax_equal": True,
+           "logits_split": []}
     with torch.no_grad():
         want, cache = tr.prefill(params, cfg, tokens=prompt, cache_len=24,
                                  cache_dtype=torch.float32)
@@ -213,6 +214,10 @@ def check_decode(mesh, inputs):
                 sh_cache["blocks"]["b0"]["k"].placements)
             scale = float(want.abs().max())
             for i in range(5):
+                # the greedy pick on the sharded logits (serve_step's)
+                out["logits_split"].append(str(got.placements))
+                out["argmax_equal"] &= bool(torch.equal(
+                    api.whole(api.argmax(got)), want.argmax(-1)))
                 got = api.whole(got)
                 out["err"] = max(out["err"],
                                  float((got - want).abs().max()) / scale)

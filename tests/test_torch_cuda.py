@@ -735,6 +735,32 @@ def test_flash_launcher_refuses_bad_input(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_op_equals_the_launch_bit_for_bit(cuda, dtype, causal):
+    """The entry's route through `torch.ops.repro_torch.flash_attention`
+    gives the launch's output bit for bit (the route before the op:
+    the launcher on the same tensors), one launch a call; the op refuses
+    tensors that require grad, as the entry did."""
+    gen = torch.Generator(device=cuda).manual_seed(3 + causal)
+    q, k, v = (torch.randn((8, 256, 128), generator=gen, device=cuda
+                           ).to(dtype) for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_attention.flash_attention.launches == before + 1
+    launched = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, launched)
+    direct = torch.ops.repro_torch.flash_attention(q, k, v, causal)
+    assert torch.equal(direct, launched)
+    with pytest.raises(ValueError, match="outside autograd"):
+        ops.flash_attention(q.clone().requires_grad_(), k, v, causal=causal)
+    with pytest.raises(ValueError, match="outside autograd"):
+        torch.ops.repro_torch.flash_attention(q, k.clone().requires_grad_(),
+                                              v, causal)
+
+
+@pytest.mark.cuda
 def test_prefill_launches_the_flash_kernel_once_a_layer(cuda):
     """The model's default route on the card is the kernel: one launch per
     attention layer of a prefill, none for `use_flash=False`, and the two

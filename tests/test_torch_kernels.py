@@ -448,6 +448,48 @@ def test_flash_entry_refuses_other_types_and_unaligned_full_attention():
         tflash.flash_attention(q, q, q)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_op_under_fake_tensors_builds_and_launches_nothing(
+        monkeypatch, causal):
+    """The attention kernel's op (`torch.ops.repro_torch.flash_attention`)
+    on fake "cuda" tensors: its fake implementation gives the output's
+    shape and dtype without building or launching the kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the fake implementation built the kernel")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    before = tflash.flash_attention.launches
+    with FakeTensorMode():
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.empty((6, 256, 128), dtype=dtype, device="cuda")
+            out = tops.flash_attention(q, q, q, causal=causal)
+            assert out.shape == q.shape and out.dtype == dtype
+            assert out.device.type == "cuda"
+    assert tflash.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_op_flops_follow_the_registered_formula(causal):
+    """`FlopCounterMode` counts 4 BH D FLOPs per live (row, key) pair of
+    the op: S(S+1)/2 pairs causal, S^2 full (`chip_smoke._flash_bound`'s
+    count)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    bh, s, d = 12, 384, 64
+    pairs = s * (s + 1) // 2 if causal else s * s
+    with FakeTensorMode():
+        q = torch.empty((bh, s, d), dtype=torch.bfloat16, device="cuda")
+        counter = FlopCounterMode(display=False)
+        with counter:
+            tops.flash_attention(q, q, q, causal=causal)
+    assert counter.get_total_flops() == 4 * bh * d * pairs
+    assert tops.flash_flops((bh, s, d), (bh, s, d), (bh, s, d), causal) \
+        == 4 * bh * d * pairs
+
+
 def test_bf16_rounding_rule_catches_a_fault_in_later_rows():
     """The card's bf16 attention check (`bf16_rounding_close`, also in
     chip_smoke.py phase 11): an exactly rounded output passes, and a 2%

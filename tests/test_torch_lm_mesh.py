@@ -384,6 +384,16 @@ def test_prefill_and_decode_under_the_policy(lm_world):
     assert out["cache_err"] <= 1e-5
 
 
+def test_greedy_pick_on_vocab_split_logits(lm_world):
+    """`sharding.api.argmax` (the serving steps' greedy pick) on the
+    decode check's sharded logits - split over the vocabulary, so each
+    rank reduces its own shard - picks the unsharded run's ids at every
+    step."""
+    out = lm_world.check("decode")
+    assert any("Shard(dim=1)" in p for p in out["logits_split"]), out
+    assert out["argmax_equal"]
+
+
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
                                   "llama4-maverick-400b-a17b"])
 def test_other_families_under_the_policy(lm_world, arch):
