@@ -2850,10 +2850,48 @@ DRYRUN_CELLS = {
         arch="mamba2-130m", shape_key="decode_32k", multi_pod=True)),
     "BlockAMC solver n=2048 s=1": ("solver", dict(n=2048, stages=1)),
 }
+# The train_4k cells on 16x16 that phase 19 holds (stablelm-1.6b's is
+# above), longest trace first: the two dense kinds, context parallelism
+# (recurrentgemma-2b: 10 heads on a 16-wide axis), the MoE and
+# Megatron-SP (`seq_shard`, 10e9 parameters and more).  The tenth,
+# llama4-maverick (16 microbatches of 48 layers: a trace of ~7 minutes
+# on the card's host), is `tests/test_torch_dryrun.py`'s slow test.
+DRYRUN_TRAIN = ("glm4-9b", "command-r-35b", "chatglm3-6b",
+                "phi3.5-moe-42b-a6.6b", "pixtral-12b", "recurrentgemma-2b",
+                "musicgen-medium", "mamba2-130m")
+DRYRUN_CELLS = dict({f"{arch} train_4k": ("lm", dict(
+    arch=arch, shape_key="train_4k")) for arch in DRYRUN_TRAIN},
+    **DRYRUN_CELLS)
+# The reference's train_4k cells on its 16x16 mesh, a chip's (peak bytes
+# - XLA's argument + temp -, FLOPs, collective bytes), as
+# `python probes/ref_dryrun_train.py` prints them (jax 0.9.0, 256 fake
+# host devices; the JAX package runs on a host, never here).
+REF_TRAIN_4K = {
+    "stablelm-1.6b": (10783436180, 4.8550310313984e13, 9.4009720936e10),
+    "glm4-9b": (9239258116, 3.08172493422592e14, 3.73138063496e11),
+    "chatglm3-6b": (6415323236, 2.11587268870144e14, 2.62248497288e11),
+    "command-r-35b": (15873535828, 1.00261716557824e15, 1.255923732584e12),
+    "pixtral-12b": (7022060332, 3.9376260169728e14, 6.0509313444e11),
+    "recurrentgemma-2b": (8853535844, 9.216999817216e13, 1.8576888048e11),
+    "phi3.5-moe-42b-a6.6b": (9721763036, 2.89412076273664e14,
+                             5.50163132524e11),
+    "llama4-maverick-400b-a17b": (33982193428, 5.0425063538688e14,
+                                  2.977298114844e12),
+    "musicgen-medium": (10650702844, 6.4398739636224e13, 1.72252741736e11),
+    "mamba2-130m": (2350626212, 3.996735504384e12, 8.5419228732e10),
+}
 DRYRUN_FLOP_TOL = 1e-6   # a trace's FLOPs vs FlopCounterMode's on the card:
 #                          the same ops counted by the same formulas
 DRYRUN_PEAK_TOL = 0.15   # a trace's peak vs the card's: the allocator's
 #                          rounding and workspaces, DTensor's one-rank copies
+CHIP_BYTES = 80e9        # an H100's memory: every train cell must fit
+TRAIN_SCALED_TOL = 1e-3  # stablelm train_4k's FLOPs a chip vs phase 15's
+#                          count x 32 / 256: the same ops, each chip an even
+#                          share (the share's rounding of odd counts)
+TRAIN_REF_TOL = 0.05     # glm4-9b's and chatglm3-6b's FLOPs a chip vs the
+#                          reference's: the same products, counted per op
+TRAIN_PEAK_REF = 2.0     # stablelm's peak vs the reference's: live tensors
+#                          op by op here, XLA's buffers after fusion there
 
 
 def _dryrun_cell(spec):
@@ -2894,7 +2932,7 @@ def _dryrun_phase(smi, lm_stats, train):
     and phase 12's prefill count the FLOPs `FlopCounterMode` counted on
     the card to DRYRUN_FLOP_TOL, their peak is within DRYRUN_PEAK_TOL of
     the card's, and each measured wall is at least its compute term.
-    Returns the reports."""
+    (c) The train_4k cells (`_train_cells`).  Returns the reports."""
     import concurrent.futures as cf
     import multiprocessing as mp
     import os
@@ -2953,7 +2991,51 @@ def _dryrun_phase(smi, lm_stats, train):
             _fail(f"the {what}'s traced peak is {off:+.1%} off the card's")
         if not wall >= compute_s:
             _fail(f"the {what} ran faster than its compute term")
+    _train_cells(reports, train)
     return reports
+
+
+def _train_cells(reports, train):
+    """Phase 19 (c): every train_4k cell fits a chip, each printed beside
+    the reference's (`REF_TRAIN_4K`); stablelm-1.6b's FLOPs a chip equal
+    phase 15's count on the card scaled from (8, 4096) tokens on one chip
+    to (256, 4096) on 256, and its peak stays within TRAIN_PEAK_REF of the
+    reference's; glm4-9b's and chatglm3-6b's FLOPs within TRAIN_REF_TOL of
+    the reference's."""
+    print("  (c) train_4k on 16x16, a chip, beside the reference's "
+          "(probes/ref_dryrun_train.py):")
+    for arch in ("stablelm-1.6b",) + DRYRUN_TRAIN:
+        r = reports[f"{arch} train_4k"]
+        peak, flops = r["memory"]["peak_bytes"], r["flops_per_chip"]
+        coll = r["collective_bytes_per_chip"]
+        ref_peak, ref_flops, ref_coll = REF_TRAIN_4K[arch]
+        print(f"    {arch}: peak {peak / 1e9:.3f} GB (reference "
+              f"{ref_peak / 1e9:.3f}, {peak / ref_peak:.3f}x); FLOPs "
+              f"{flops:.6e} ({ref_flops:.4e}, {flops / ref_flops:.4f}x); "
+              f"collective bytes {coll:.4e} ({ref_coll:.4e}, "
+              f"{coll / ref_coll:.3f}x); trace {r['compile_s']} s")
+        if not peak < CHIP_BYTES:
+            _fail(f"{arch} train_4k peaks at {peak / 1e9:.3f} GB a chip, "
+                  f"over {CHIP_BYTES / 1e9:.0f} GB")
+        if arch in ("glm4-9b", "chatglm3-6b") and not \
+                abs(flops / ref_flops - 1) <= TRAIN_REF_TOL:
+            _fail(f"{arch} train_4k counts {flops / ref_flops:.4f}x the "
+                  f"reference's FLOPs a chip")
+    r = reports["stablelm-1.6b train_4k"]
+    want = train["counted_flops"] * 32 / 256
+    rel = abs(r["flops_per_chip"] - want) / want
+    ratio = r["memory"]["peak_bytes"] / REF_TRAIN_4K["stablelm-1.6b"][0]
+    print(f"    stablelm-1.6b: {r['flops_per_chip']:.6e} FLOPs a chip vs "
+          f"phase 15's {train['counted_flops']:.6e} x 32 / 256 = "
+          f"{want:.6e} ({rel:.2e} relative, tolerance "
+          f"{TRAIN_SCALED_TOL:g}); peak {ratio:.3f}x the reference's "
+          f"(at most {TRAIN_PEAK_REF:g}x)")
+    if not rel <= TRAIN_SCALED_TOL:
+        _fail(f"stablelm-1.6b train_4k counts {rel:.2e} off phase 15's "
+              f"count scaled")
+    if not ratio <= TRAIN_PEAK_REF:
+        _fail(f"stablelm-1.6b train_4k peaks at {ratio:.3f}x the "
+              f"reference's")
 
 
 def _print_ptxas(log):

@@ -56,14 +56,19 @@ are DTensors, and the attention cores run on each rank's local shards -
 DTensor's own rules for the cores' einsums and views differ between
 torch releases, and the local form is what a sharded kernel needs:
 
-- both routes (`_attend`): k and v are laid out as q is (under the
-  context-parallel rule, where k and v split the sequence, that gathers
-  them along "model": a core over a share of the keys would be silently
-  wrong), the core - the kernel or `_chunked_attend` - takes the local
-  tensors with the local rows' positions, and its output is wrapped back
-  with q's placements.  A layout that splits q's sequence or head dim
-  raises.  Projections whose features the heads do not split evenly are
-  gathered before the heads are split (`_heads`);
+- both routes (`_attend`): k and v are laid out as q is, with the
+  sequence whole (under the context-parallel rule, where k and v split
+  the sequence, that gathers them along "model": a core over a share of
+  the keys would be silently wrong), the core - the kernel or
+  `_chunked_attend` - takes the local tensors with the local rows'
+  positions, and its output is wrapped back with q's placements.  On the
+  chunked route the context-parallel rule also splits q's sequence as
+  k's was split, so each rank attends its share of the queries (with
+  their positions) to the whole keys, where a whole q would repeat the
+  same attention on every rank of "model"; the kernel's causal mask
+  needs the queries from position 0, so its route keeps q whole.
+  Projections whose features the heads do not split evenly are gathered
+  before the heads are split (`_heads`);
 - prefill lays its cache out by "act_cache", the layout decode keeps it
   in; decode writes a DTensor cache in place shard by shard
   (`_put_local`: each rank writes the rows and slots it holds; DTensor
@@ -86,7 +91,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -94,7 +99,7 @@ from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import einsum, init_dense, mm, rope
 from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
-                                      on_local, shard, whole)
+                                      on_local, seq_whole, shard, whole)
 
 NEG_INF = -2.0 ** 30
 
@@ -120,6 +125,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
 def _qkv(params: Dict, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    x = seq_whole(x)            # one gather of a split sequence, not three
     q = _heads(mm(x, params["wq"]), cfg.n_heads)
     k = _heads(mm(x, params["wk"]), cfg.kv_heads)
     v = _heads(mm(x, params["wv"]), cfg.kv_heads)
@@ -143,12 +149,15 @@ def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _chunked_attend(q, k, v, positions, window: Optional[int],
-                    q_chunk: int) -> torch.Tensor:
+                    q_chunk: int, q_positions=None) -> torch.Tensor:
     """Q-chunked causal attention core, flat-head layout.
 
-    q, k, v: (B, S, H, hd), KV heads already repeated to H.  Returns
-    (B, S, H, hd).
+    q: (B, Sq, H, hd), k, v: (B, S, H, hd), KV heads already repeated to
+    H; positions (B, S) are the keys', q_positions (B, Sq) the queries'
+    (default: the keys').  Returns (B, Sq, H, hd).
     """
+    if q_positions is None:
+        q_positions = positions
     s = q.shape[1]
     scale = q.shape[-1] ** -0.5
     q_chunk = min(q_chunk, s)
@@ -156,7 +165,7 @@ def _chunked_attend(q, k, v, positions, window: Optional[int],
     outs = []
     for c in range(s // q_chunk):
         q_i = q[:, c * q_chunk:(c + 1) * q_chunk]
-        pos_i = positions[:, c * q_chunk:(c + 1) * q_chunk]
+        pos_i = q_positions[:, c * q_chunk:(c + 1) * q_chunk]
         scores = einsum("bqhd,bshd->bhqs", q_i, k) * scale
         mask = pos_i[:, None, :, None] >= positions[:, None, None, :]
         if window is not None:
@@ -210,22 +219,31 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
     one route: `_flash_local` (one `ops.flash_attention` call) or
     `_chunked_attend`.  KV heads are repeated and q, k, v laid out first
     (`_layout`); DTensors are attended on each rank's local batch rows
-    and heads (module docstring).  Returns (B, S, H*hd)."""
+    and heads, and on the chunked route under context parallelism on its
+    share of the queries (module docstring).  Returns (B, S, H*hd)."""
     b, s = q.shape[0], q.shape[1]
     q, k, v = _layout(q, k, v, cfg)
 
-    def core(q, k, v, positions):
+    def core(q, k, v, positions, q_positions):
         if flash:
             return _flash_local(q, k, v)
-        return _chunked_attend(q, k, v, positions, window, q_chunk)
+        return _chunked_attend(q, k, v, positions, window, q_chunk,
+                               q_positions)
 
     if is_dtensor(q):           # batch rows and heads split, as q's
-        k, v = (lay_out(t, q.device_mesh, q.placements) for t in (k, v))
+        mesh = q.device_mesh
+        if not flash:           # the queries split as k's sequence is
+            q = lay_out(q, mesh, [
+                Shard(1) if p.is_replicate() and r.is_shard(1) else p
+                for p, r in zip(q.placements, k.placements)])
+        k, v = (lay_out(t, mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in q.placements]) for t in (k, v))
         size, off = local_box(q)
         rows = whole(positions)[off[0]:off[0] + size[0]]
-        out = on_local(core, q, k, v, rows, split=(0, 2))
+        out = on_local(core, q, k, v, rows,
+                       rows[:, off[1]:off[1] + size[1]], split=(0, 1, 2))
     else:
-        out = core(q, k, v, positions)
+        out = core(q, k, v, positions, None)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim)
 
 

@@ -5,6 +5,13 @@ tensors), as `repro/models/layers.py`.
 does (bfloat16 with float32 gives float32), where torch would refuse
 mixed types: a float32 cache under bfloat16 weights, as the
 continuous-batching engine keeps it, computes as in the reference.
+
+Under a sharding policy `mm` multiplies DTensors on each rank's shards
+with the layouts FSDP and tensor parallelism mean (`sharding.api.matmul`:
+a split sequence stays split, or is gathered into a projection whose
+features the model axis splits, Megatron-SP's boundary); a block with
+several such projections of one input gathers its sequence once itself
+(`sharding.api.seq_whole`).
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.api import matmul, seq_whole
 
 
 def _common(*xs):
@@ -23,9 +32,10 @@ def _common(*xs):
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in the operands' promoted dtype."""
+    """a @ b in the operands' promoted dtype; DTensors on each rank's
+    shards (module docstring)."""
     a, b = _common(a, b)
-    return a @ b
+    return matmul(a, b)
 
 
 def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
@@ -62,6 +72,7 @@ def swiglu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype
 
 
 def swiglu_ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    x = seq_whole(x)
     h = F.silu(mm(x, params["gate"])) * mm(x, params["up"])
     return mm(h, params["down"])
 

@@ -27,10 +27,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, mm
+from repro_torch.sharding.api import is_dtensor, lay_out, on_local, seq_whole
 
 _C = 8.0
 
@@ -67,7 +69,14 @@ def _gates(params: Dict, u: torch.Tensor):
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d.  u: (B, S, C), w: (K, C)."""
+    """Depthwise causal conv1d.  u: (B, S, C), w: (K, C).  A DTensor u
+    (its sequence whole) is convolved on each rank's rows and channels,
+    w's channels split as u's (the card's torch 2.11 raises in DTensor's
+    rule for `F.pad`)."""
+    if is_dtensor(u):
+        w = lay_out(w, u.device_mesh, [
+            Shard(1) if p.is_shard(2) else Replicate() for p in u.placements])
+        return on_local(_causal_conv, u, w, split=(0, 2))
     k, s = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, k - 1, 0))
     out = torch.zeros_like(u)
@@ -92,11 +101,16 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                   return_cache: bool = False):
     """Full-sequence forward.  x: (B, S, d)."""
+    x = seq_whole(x)
     y = F.gelu(mm(x, params["w_y"]), approximate="tanh")
     u_in = mm(x, params["w_u"])
     u = _causal_conv(u_in, params["conv_w"])
     a, b = _gates(params, u)                       # (B, S, W) f32
-    h = linear_scan(a, b)
+    if is_dtensor(a):               # on each rank's rows and channels
+        h = on_local(linear_scan, a, lay_out(b, a.device_mesh, a.placements),
+                     split=(0, 2))
+    else:
+        h = linear_scan(a, b)
     out = mm(y * h.to(x.dtype), params["w_o"])
     if not return_cache:
         return out

@@ -22,17 +22,19 @@ out_proj; a_log, dt_bias, norm_w are zeros and d_skip ones.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, mm, rms_norm
-from repro_torch.sharding.api import is_dtensor, lay_out, on_local, whole
+from repro_torch.sharding.api import (is_dtensor, lay_out, on_local,
+                                      replicated, whole)
 
 
 def _dims(cfg: ModelConfig):
@@ -81,17 +83,107 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 return_cache: bool = False):
-    """Chunked SSD, full sequence.  x: (B, S, d) -> (B, S, d)."""
-    b, s, _ = x.shape
+    """Chunked SSD, full sequence.  x: (B, S, d) -> (B, S, d).  Under a
+    mesh the SSD runs on each rank's batch rows, the in-projection's
+    features gathered, and the ranks that share those rows share out the
+    heads (`_head_share`: ceil(H / m) a rank, where an even split over
+    the model axis need not exist: mamba2's 24 heads on 16); the
+    projections stay on DTensors."""
+    d_inner, h, _, _ = _dims(cfg)
+    zxbcdt = mm(_rows_apart(x, params["in_proj"]), params["in_proj"])
+    weights = [params[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip")]
+    norm_w = params["norm_w"]
+    if not is_dtensor(zxbcdt):
+        y, state, conv = _forward_core(zxbcdt, *weights, cfg, (0, h, h))
+        y = _gate(y, zxbcdt, norm_w, cfg, x.dtype)
+    else:
+        mesh = zxbcdt.device_mesh
+        rows = [p if p.is_shard(0) else Replicate()
+                for p in zxbcdt.placements]
+        zxbcdt = lay_out(zxbcdt, mesh, rows)
+        heads, by_head, by_state = _head_share(mesh, rows, h)
+        y, state, conv = on_local(
+            functools.partial(_forward_core, heads=heads), zxbcdt,
+            *(replicated(w, mesh) for w in weights), cfg, split=(0,),
+            place=(by_head, by_state, rows))
+        y = on_local(lambda t, zx, w: _gate(t[:, :, :h], zx, w, cfg,
+                                            x.dtype),
+                     lay_out(y, mesh, rows), zxbcdt, replicated(norm_w, mesh),
+                     split=(0,), place=rows)
+        state = on_local(lambda t: t[:, :h], lay_out(state, mesh, rows),
+                         split=(0,))
+    out = mm(y, params["out_proj"])
+    if not return_cache:
+        return out
+    return out, {"state": state, "conv": conv}
+
+
+def _rows_apart(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) with its sequence split (a local slice) over each mesh
+    dim that splits neither its rows nor the weight w, so that the
+    product x @ w is not repeated on every rank there: mamba2's in
+    projection of 3352 features is whole on a 16-wide "model" axis (the
+    parameter rules keep a dim they cannot split evenly whole), and the
+    core gathers the sequence back."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    mesh, s = x.device_mesh, x.shape[1]
+    place, ways = list(x.placements), 1
+    for j, (p, q) in enumerate(zip(x.placements, w.placements)):
+        if p.is_replicate() and q.is_replicate() and \
+                s % (ways * mesh.size(j)) == 0:
+            place[j], ways = Shard(1), ways * mesh.size(j)
+    return lay_out(x, mesh, place)
+
+
+def _head_share(mesh, rows, h: int):
+    """This rank's heads of h where the mesh dims that do not split the
+    rows (`rows`: placements) share them out: ceil(h / m) a rank over
+    those m ranks, the last ones short or empty.  ((first, end, width),
+    the placements of a (B, S, m * width, P) stack of every rank's padded
+    heads, and of a (B, m * width, P, N) one)."""
+    over = [j for j, p in enumerate(rows) if p.is_replicate()]
+    coord, m, r = mesh.get_coordinate(), 1, 0
+    for j in over:
+        r, m = r * mesh.size(j) + coord[j], m * mesh.size(j)
+    width = -(-h // m)
+    first = min(r * width, h)
+    return ((first, min(first + width, h), width),
+            [Shard(2) if j in over else p for j, p in enumerate(rows)],
+            [Shard(1) if j in over else p for j, p in enumerate(rows)])
+
+
+def _gate(y, zxbcdt, norm_w, cfg: ModelConfig, dtype):
+    """The gated RMSNorm of the SSD's y (B, S, H, P) float32 with z, the
+    in-projection's first d_inner features, in `dtype` (the out
+    projection follows)."""
+    b, s = y.shape[:2]
+    d_inner = _dims(cfg)[0]
+    y = y.reshape(b, s, d_inner).to(dtype)
+    return rms_norm(y * F.silu(zxbcdt[..., :d_inner]), norm_w, cfg.norm_eps)
+
+
+def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
+                  cfg: ModelConfig, heads):
+    """The SSD of plain tensors from the in-projection (B, S, F), for
+    heads [first, end) of `heads` = (first, end, width): (y (B, S, width,
+    P) float32 with the skip term, the last state (B, width, P, N), the
+    conv history's tail), heads past `end` zero.  All heads (0, H, H) is
+    the reference's SSD op for op."""
+    b, s, _ = zxbcdt.shape
     d_inner, h, p, n = _dims(cfg)
+    first, end, width = heads
     f32 = torch.float32
-    z, xs, bc, dt = _split_proj(params, x, cfg)
+    _, xs, bc, dt = torch.split(zxbcdt, [d_inner, d_inner, 2 * n, h],
+                                dim=-1)
     conv_in = torch.cat([xs, bc], dim=-1)
-    conv_out = _causal_conv(conv_in, params["conv_w"])
+    conv_out = _causal_conv(conv_in, conv_w)
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    xh = xs.reshape(b, s, h, p)
-    dt = F.softplus(dt.to(f32) + params["dt_bias"])           # (B, S, H)
-    a = -torch.exp(params["a_log"])                            # (H,)
+    xh = xs.reshape(b, s, h, p)[:, :, first:end]
+    h = end - first
+    dt = F.softplus(dt[..., first:end].to(f32)
+                    + dt_bias[first:end])                      # (B, S, H)
+    a = -torch.exp(a_log[first:end])                           # (H,)
     la = dt * a                            # log decay per step, <= 0
     xbar = xh * dt[..., None].to(xh.dtype)
 
@@ -109,7 +201,8 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     # ---- intra-chunk (quadratic / 'attention' mode) ----
     # L[i, j] = exp(cum_i - cum_j) for i >= j, masked before the exp
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,NC,i,j,H)
-    mask = torch.ones((ch, ch), dtype=torch.bool, device=x.device).tril()
+    mask = torch.ones((ch, ch), dtype=torch.bool,
+                      device=zxbcdt.device).tril()
     decay = torch.exp(torch.where(mask[:, :, None], diff, -math.inf))
     cb = torch.einsum("bcin,bcjn->bcij", cmat_c, bmat_c)      # (B,NC,i,j)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay,
@@ -120,7 +213,7 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     w_in = torch.exp(total[:, :, None, :] - cum)               # (B,NC,ch,H)
     state_c = torch.einsum("bcjn,bcjhp->bchpn", bmat_c,
                            xbar * w_in[..., None])             # (B,NC,H,P,N)
-    state = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    state = torch.zeros((b, h, p, n), dtype=f32, device=zxbcdt.device)
     in_states = []
     for c in range(nc):
         in_states.append(state)                        # incoming state
@@ -133,15 +226,12 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         * torch.exp(cum)[..., None]
 
     y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + params["d_skip"][:, None] * xh.to(f32)
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    # gated RMSNorm then out projection
-    y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    out = mm(y, params["out_proj"])
-    if not return_cache:
-        return out
-    k = cfg.conv_kernel
-    return out, {"state": state, "conv": conv_in[:, -(k - 1):, :]}
+    y = y + d_skip[first:end, None] * xh.to(f32)
+    conv = conv_in[:, -(cfg.conv_kernel - 1):, :]
+    if h < width:                   # a rank's short share of the heads
+        y = F.pad(y, (0, 0, 0, width - h))
+        state = F.pad(state, (0, 0, 0, 0, 0, width - h))
+    return y, state, conv
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mm, rms_norm, softcap, swiglu_ffn,
                                        swiglu_ffn_init)
 from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
-                                      on_local, shard, whole)
+                                      on_local, shard)
 from repro_torch.tree import tree_map
 
 
@@ -114,7 +114,7 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
         out, aux = moe_mod.moe_ffn(params["ffn"], h, cfg)
     else:
         out = swiglu_ffn(params["ffn"], h)
-    return x + out, aux
+    return x + shard(out, "act_btd"), aux
 
 
 def _window(cfg: ModelConfig, unit) -> Optional[int]:
@@ -136,7 +136,8 @@ def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
         mixed = rglru_mod.rglru_forward(params["mix"], h, cfg)
     else:
         mixed = ssm_mod.ssm_forward(params["mix"], h, cfg)
-    x, aux = _ffn(params, shard(x + mixed, "act_btd"), cfg, is_moe)
+    x, aux = _ffn(params, shard(x + shard(mixed, "act_btd"), "act_btd"),
+                  cfg, is_moe)
     return shard(x, "act_btd"), aux
 
 
@@ -260,7 +261,7 @@ def _embed(params: Dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     table = params["embed"]
     if not is_dtensor(table):
         return shard(table[tokens.long()].to(dtype), "act_btd")
-    x = shard(_lookup_split(table, whole(tokens).long(), dtype), "act_btd")
+    x = shard(_lookup_split(table, tokens.long(), dtype), "act_btd")
     if any(p.is_partial() for p in x.placements):   # no rule: summed here
         x = lay_out(x, x.device_mesh, [Replicate() if p.is_partial() else p
                                        for p in x.placements])
@@ -270,11 +271,20 @@ def _embed(params: Dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
 def _lookup_split(table: torch.Tensor, ids: torch.Tensor,
                   dtype) -> torch.Tensor:
     """table[ids] in `dtype` for a DTensor table (V, d), a vocab-parallel
-    embedding: each rank looks the ids (whole on every rank) up in the
-    vocabulary rows it holds, zero for the others, so the result is a
-    partial sum over the mesh dims that split the vocabulary (one rank
-    adds each value: exact in any dtype) and split along d as the table
-    is.  The reduction moves (B, S, d), never the table."""
+    embedding: each rank looks its ids up in the vocabulary rows it
+    holds, zero for the others, so the result is a partial sum over the
+    mesh dims that split the vocabulary (one rank adds each value: exact
+    in any dtype).  A mesh dim that splits the ids (a DTensor, the batch
+    rows) splits the result's rows alike and must hold the table whole
+    there (FSDP's gather of the table's d, or of its rows); one that
+    splits only the table's d splits the result's.  So the reduction
+    moves each rank's rows of (B, S, d), never the table, and no rank
+    looks up rows it does not hold.  Plain ids are whole on every rank."""
+    ids_place = (ids.placements if is_dtensor(ids)
+                 else [Replicate()] * table.device_mesh.ndim)
+    table = lay_out(table, table.device_mesh, [
+        Replicate() if q.is_shard() else p
+        for p, q in zip(table.placements, ids_place)])
     size, off = local_box(table)
 
     def lookup(t, ids):
@@ -282,8 +292,9 @@ def _lookup_split(table: torch.Tensor, ids: torch.Tensor,
         hit = (local >= 0) & (local < size[0])
         rows = t[local.clamp(0, size[0] - 1)].to(dtype)
         return torch.where(hit[..., None], rows, 0.0)
-    place = [Partial() if p.is_shard(0) else Shard(2) if p.is_shard(1)
-             else p for p in table.placements]
+    place = [q if q.is_shard() else Partial() if p.is_shard(0)
+             else Shard(2) if p.is_shard(1) else p
+             for p, q in zip(table.placements, ids_place)]
     return on_local(lookup, table, ids, split=(0, 1), place=place)
 
 
@@ -383,7 +394,8 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         mixed, cache = ssm_mod.ssm_forward(params["mix"], h, cfg,
                                            return_cache=True)
-    x, aux = _ffn(params, shard(x + mixed, "act_btd"), cfg, is_moe)
+    x, aux = _ffn(params, shard(x + shard(mixed, "act_btd"), "act_btd"),
+                  cfg, is_moe)
     return shard(x, "act_btd"), cache, aux
 
 

@@ -36,10 +36,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclasses.dataclass
@@ -175,21 +177,167 @@ def local_box(x) -> tuple:
 
 def on_local(fn, x: DTensor, *others, split, place=None) -> DTensor:
     """fn(x's local shard, *others) as a DTensor on x's mesh with
-    `place` (default: x's placements).  Each DTensor among `others` is
+    `place` (default: x's placements); a tuple of results as a tuple of
+    DTensors, each with `place` or with its own placements where `place`
+    is a tuple of placement lists.  Each DTensor among `others` is
     passed as its local shard, anything else as it is; x may be split
     along the tensor dims in `split` only (a ValueError otherwise), so
     that `fn` sees whole what it must.  The result keeps the gradient:
-    its backward hands `fn` the local gradient."""
+    its backward hands `fn` the local gradient, and an input whole on a
+    mesh dim over which the result varies (split or partial) gets its
+    gradient there as a partial sum - each rank's share of it, as the
+    weights of a product over each rank's rows."""
     bad = [p for p in x.placements if p.is_shard() and p.dim not in split]
     if bad:
         raise ValueError(f"{getattr(fn, '__name__', fn)} takes a tensor "
                          f"split along dims {tuple(split)} only, not "
                          f"{tuple(x.placements)}")
-    out = fn(x.to_local(), *(o.to_local() if is_dtensor(o) else o
-                             for o in others))
-    return DTensor.from_local(out, x.device_mesh,
-                              x.placements if place is None else place,
-                              run_check=False)
+    place = x.placements if place is None else place
+    each = (tuple(list(pl) for pl in place)
+            if isinstance(place[0], (list, tuple)) else None)
+    varies = [any(not pl[j].is_replicate() for pl in (each or [place]))
+              for j in range(x.device_mesh.ndim)]
+
+    def local(t):
+        if not is_dtensor(t):
+            return t
+        return t.to_local(grad_placements=[
+            Partial() if p.is_replicate() and v
+            else Replicate() if p.is_partial() else p
+            for p, v in zip(t.placements, varies)])
+    out = fn(local(x), *(local(o) for o in others))
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, x.device_mesh, pl,
+                                        run_check=False)
+                     for o, pl in zip(out, each or [place] * len(out)))
+    return DTensor.from_local(out, x.device_mesh, place, run_check=False)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """x (B, ..., F) with every split of the dims between the first and
+    the last gathered: the sequence of Megatron-SP or context parallelism
+    gathered into a projection, as the reference's layouts do at the
+    block's boundary.  torch's matmul flattens the leading dims, and
+    DTensor's rules take no flatten of a split sequence.  Anything else
+    is returned as it is."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    mid = range(1, x.dim() - 1)
+    if not any(p.is_shard() and p.dim in mid for p in x.placements):
+        return x
+    return lay_out(x, x.device_mesh, [
+        Replicate() if p.is_shard() and p.dim in mid else p
+        for p in x.placements])
+
+
+def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ w (K, N), a DTensor pair on each rank's shards with the
+    reference's FSDP and tensor-parallel layouts.  Over each mesh dim:
+    rows of a split there stay split (w gathered there: FSDP's all-gather
+    before use, whose backward reduce-scatters the gradient); a K split
+    of a gives a partial sum (w split alike, row-parallel); with a whole,
+    w's N split stays (column-parallel) and its K split takes a's K alike
+    (a local slice of a and a partial sum, where gathering w would repeat
+    the product on every rank).  A sequence split over a mesh dim that
+    splits w's N is gathered first (Megatron-SP's boundary into a
+    projection).  The local product flattens only local tensors: DTensor's
+    own rule takes no flatten of a split sequence, and for a small
+    activation may split the contraction and hold every row's product on
+    every rank.  Other operands go to torch.matmul."""
+    if not (is_dtensor(a) and is_dtensor(w)) or w.dim() != 2:
+        return torch.matmul(a, w)
+    mesh, last = a.device_mesh, a.dim() - 1
+    a = lay_out(a, mesh, [
+        Replicate() if p.is_partial() or (
+            p.is_shard() and 0 < p.dim < last and q.is_shard(1)) else p
+        for p, q in zip(a.placements, w.placements)])
+    w_place, out = [], []
+    for p, q in zip(a.placements, w.placements):
+        if p.is_shard(last):
+            w_place.append(Shard(0))
+            out.append(Partial())
+        elif p.is_shard():
+            w_place.append(Replicate())
+            out.append(Shard(p.dim))
+        elif q.is_shard(1):
+            w_place.append(q)
+            out.append(Shard(last))
+        elif q.is_shard(0):
+            w_place.append(q)
+            out.append(Partial())
+        else:
+            w_place.append(Replicate())
+            out.append(Replicate())
+    a = lay_out(a, mesh, [Shard(last) if o.is_partial() else p
+                          for p, o in zip(a.placements, out)])
+    return on_local(torch.matmul, a, lay_out(w, mesh, w_place),
+                    split=range(a.dim()), place=out)
+
+
+def split_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B, ...) as (n, B // n, ...): part i is rows [i*B/n, (i+1)*B/n),
+    as `x.reshape(n, B // n, ...)`.  A DTensor comes back split along its
+    dim 1 as x is along dim 0 (its other splits one dim on), so that
+    indexing part i (`take`) needs no communication.  Where one mesh dim
+    splits x's rows and B/n divides over it, each rank's rows go where
+    they belong in one all-to-all over that dim (x's own bytes, never the
+    whole batch); otherwise the rows are gathered first."""
+    b = x.shape[0]
+    if not is_dtensor(x):
+        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+    mesh, place = x.device_mesh, list(x.placements)
+    rows = [j for j, p in enumerate(place) if p.is_shard(0)]
+    ways = math.prod(mesh.size(j) for j in rows)
+    if len(rows) > 1 or (b // n) % ways:
+        out = split_rows(lay_out(x, mesh, [
+            Replicate() if p.is_shard(0) else p for p in place]), n)
+        return lay_out(out, mesh, _fit([
+            Shard(1) if j in rows else p
+            for j, p in enumerate(out.placements)], out.shape, mesh))
+    local = x.to_local()
+    rest = tuple(local.shape[1:])
+    if rows:
+        local = _rows_to_parts(local, n, mesh, rows[0])
+    local = local.reshape((n, local.shape[0] // n) + rest)
+    return DTensor.from_local(local, mesh, [
+        Shard(p.dim + 1) if p.is_shard() else p for p in place],
+        run_check=False)
+
+
+def _rows_to_parts(local: torch.Tensor, n: int, mesh, j: int
+                   ) -> torch.Tensor:
+    """Rank c of mesh dim j (of size P) holds rows [c*B/P, (c+1)*B/P) of
+    B; returns the rows it holds of each of the n parts of B (rows
+    [c*q, (c+1)*q) of each part, q = B/(n P)), parts in order.  Row block
+    k = c*n + a (a < n, q rows each) belongs to rank k % P, part k // P;
+    one all-to-all over the dim moves every block, and each rank receives
+    its n blocks in part order (source rank, then a, both ascending)."""
+    p, c = mesh.size(j), mesh.get_local_rank(j)
+    if p == 1:
+        return local
+    q = local.shape[0] // n
+    dest = [(c * n + a) % p for a in range(n)]
+    order = sorted(range(n), key=lambda a: dest[a])
+    blocks = local.reshape((n, q) + tuple(local.shape[1:]))
+    send = (local if order == list(range(n))
+            else torch.cat([blocks[a] for a in order])).contiguous()
+    send_counts = [q * dest.count(r) for r in range(p)]
+    recv_counts = [q * sum((src * n + a) % p == c for a in range(n))
+                   for src in range(p)]
+    out = torch.empty((n * q,) + tuple(local.shape[1:]), dtype=local.dtype,
+                      device=local.device)
+    dist.all_to_all_single(out, send, recv_counts, send_counts,
+                           group=mesh.get_group(j))
+    return out
+
+
+def take(x: torch.Tensor, i: int) -> torch.Tensor:
+    """Part i of `split_rows`' result: x[i], on each rank's shard for a
+    DTensor (dim 0 must be whole)."""
+    if not is_dtensor(x):
+        return x[i]
+    return on_local(lambda t: t[i], x, split=range(1, x.dim()), place=[
+        Shard(p.dim - 1) if p.is_shard() else p for p in x.placements])
 
 
 def argmax(x: torch.Tensor) -> torch.Tensor:
@@ -214,7 +362,7 @@ def argmax(x: torch.Tensor) -> torch.Tensor:
 
 def shard(x: torch.Tensor, name: str) -> torch.Tensor:
     """x laid out by the active policy's rule for `name` (the identity
-    with no policy or an unbound name)."""
+    with no policy or an unbound name), and so is its gradient."""
     pol = _ACTIVE
     if pol is None:
         return x
@@ -223,7 +371,15 @@ def shard(x: torch.Tensor, name: str) -> torch.Tensor:
         return x
     from repro_torch.sharding.partition import placements
     place = placements(spec, pol.mesh)
-    return lay_out(x, pol.mesh, _fit(place, x.shape, pol.mesh))
+    x = lay_out(x, pol.mesh, _fit(place, x.shape, pol.mesh))
+    if torch.is_grad_enabled() and x.requires_grad:
+        # the gradient laid out as x too, whatever layout it arrives in
+        # (a partial sum reduced here), as the reference's constraint
+        # binds both directions; the forward moves nothing
+        x = DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                               run_check=False, shape=x.shape,
+                               stride=x.stride())
+    return x
 
 
 def _fit(place, shape, mesh) -> list:

@@ -7,7 +7,11 @@ costs - and runs on the device of the parameters.  Gradients come from
 parameters (no copies), so the caller's tensors never require grad.
 Microbatching (gradient accumulation) runs `global_batch // microbatch`
 forward-backward passes over consecutive slices of the batch, adding
-`g / n_micro` to a buffer in `accum_dtype`, as the reference's scan.
+`g / n_micro` to a buffer in `accum_dtype`, as the reference's scan.  A
+DTensor batch is laid out once a step as (n_micro, mb, ...) with each
+microbatch's rows split as the batch's (`sharding.api.split_rows`: one
+all-to-all), so no rank holds a whole microbatch; slicing a split
+DTensor would gather it.
 
 On a mesh the state's leaves are DTensors (`sharding/partition.py`'s
 `make_state_shardings` + `distribute`) and the step runs inside the
@@ -16,8 +20,9 @@ inserts the gradient reductions.  `grad_shardings` (a tree of
 `NamedSharding`s like the parameters, from `make_param_shardings`) lays
 each gradient, the microbatch accumulator included, out as its leaf, as
 the reference's `constrain` does: the batch-axis reduction becomes a
-reduce-scatter into the parameter's shards.  The metrics come back as
-plain 0-d tensors, whole on every rank.
+reduce-scatter into the parameter's shards.  Vocabulary-split logits
+take the loss on each rank's shard (`_split_terms`), never whole.  The
+metrics come back as plain 0-d tensors, whole on every rank.
 """
 from __future__ import annotations
 
@@ -25,14 +30,17 @@ import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import transformer as tr
 from repro_torch.numerics import over
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.sharding.api import (is_dtensor, lay_out, mesh_ops,
-                                      replicated, whole)
+from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
+                                      mesh_ops, on_local, replicated,
+                                      split_rows, take, whole)
 from repro_torch.sharding.partition import NamedSharding
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -63,24 +71,98 @@ def loss_fn(params, batch: Dict, model_cfg: ModelConfig,
     """Next-token cross entropy over the padded vocabulary, masked where
     labels < 0, plus AUX_WEIGHT * aux.  The label logit is gathered: its
     sum over the vocabulary has one nonzero term, so the gather is the
-    reference's one-hot reduce exactly.  Logits split over the vocabulary
-    (a DTensor) take that reduce itself, which stays split."""
+    reference's one-hot reduce exactly.  Logits that are a DTensor take
+    both terms on each rank's vocabulary shard (`_split_terms`)."""
     logits, aux = tr.forward(params, model_cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), remat=remat)
     labels = batch["labels"]                        # (B, S) int, -1 = pad
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    target = labels.clamp(min=0).long()[..., None]
-    if is_dtensor(logits):      # vocab-split logits: the one-hot reduce
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        ll = torch.sum(torch.where(vocab == target, logits, 0.0), dim=-1)
+    if is_dtensor(logits):
+        labels = lay_out(labels, logits.device_mesh, _rows(logits))
+        lse, ll = _split_terms(logits, labels)
     else:
+        lse = torch.logsumexp(logits, dim=-1)
+        target = labels.clamp(min=0).long()[..., None]
         ll = torch.gather(logits, -1, target)[..., 0]
     mask = (labels >= 0).to(torch.float32)
     denom = torch.clamp(torch.sum(mask), min=1.0)
     ce = torch.sum((lse - ll) * mask) / denom
     loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+def _rows(logits) -> list:
+    """The placements of a (B, S) tensor laid out as the rows of the
+    DTensor `logits` (B, S, V)."""
+    return [p if p.is_shard() and p.dim < 2 else Replicate()
+            for p in logits.placements]
+
+
+def _split_terms(logits, labels):
+    """(log-sum-exp, label logit) of DTensor logits (B, S, V) at `labels`
+    (B, S, laid out as the logits' rows), each reduced on the rank's own
+    vocabulary shard (`_ShardTerms`) into a partial sum over the mesh dims
+    that split the vocabulary: exp(x - m) summed, and the label logit
+    where the label lies in the shard (0 elsewhere); m, the rows' largest
+    logit, is a max over those dims (a shift no gradient sees).  No mesh
+    dim gathers the vocabulary (DTensor's own logsumexp would), and
+    nothing is read back (`local_box`), so it also traces on fake
+    tensors.  Where no mesh dim splits the vocabulary, each rank's rows
+    take the unsharded formulas, op for op."""
+    mesh, rows = logits.device_mesh, _rows(logits)
+    vocab = [j for j, p in enumerate(logits.placements)
+             if p.is_shard(2) and mesh.size(j) > 1]
+    if not vocab:
+        return (on_local(lambda t: torch.logsumexp(t, dim=-1), logits,
+                         split=(0, 1, 2), place=rows),
+                on_local(lambda t, lab: torch.gather(
+                    t, -1, lab.clamp(min=0).long()[..., None])[..., 0],
+                    logits, labels, split=(0, 1, 2), place=rows))
+    size, off = local_box(logits)
+    partial = [Partial() if j in vocab else p for j, p in enumerate(rows)]
+
+    def top(t):
+        m = t.detach().amax(dim=-1)
+        for j in vocab:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(j))
+        return m
+
+    def terms(t, m, lab):
+        return _ShardTerms.apply(t, m, lab.clamp(min=0).long() - off[2])
+
+    m = on_local(top, logits, split=(0, 1, 2), place=rows)
+    both = lay_out(on_local(terms, logits, m, labels, split=(0, 1, 2),
+                            place=partial), mesh, rows)
+    total, ll = (on_local(lambda t, k=k: t[..., k], both, split=(0, 1))
+                 for k in (0, 1))
+    return m + torch.log(total), ll
+
+
+class _ShardTerms(torch.autograd.Function):
+    """A vocabulary shard's terms of the cross entropy: t (B, S, v) float32
+    logits, m (B, S) the shift, at (B, S) the label's index in the shard
+    (out of [0, v) where it lies in another) -> (B, S, 2): the sum of
+    exp(t - m) and the label logit (0 where the label is elsewhere).  The
+    backward writes the logits' gradient into one buffer, where autograd's
+    exp, gather and sum would hold three of the shard's size."""
+
+    @staticmethod
+    def forward(ctx, t, m, at):
+        v = t.shape[-1]
+        hit = (at >= 0) & (at < v)
+        idx = at.clamp(0, v - 1)[..., None]
+        total = torch.sum(torch.exp(t - m[..., None]), dim=-1)
+        ll = torch.where(hit, torch.gather(t, -1, idx)[..., 0], 0.0)
+        ctx.save_for_backward(t, m, idx, hit)
+        return torch.stack([total, ll], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        t, m, idx, hit = ctx.saved_tensors
+        grad = torch.exp(t - m[..., None])
+        grad.mul_(g[..., :1])
+        grad.scatter_add_(-1, idx, torch.where(hit, g[..., 1], 0.0)[..., None])
+        return grad, None, None
 
 
 def value_and_grad(params, batch: Dict, model_cfg: ModelConfig,
@@ -98,6 +180,23 @@ def value_and_grad(params, batch: Dict, model_cfg: ModelConfig,
                for p, g in zip(flat, grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda p: by_leaf[id(p)], diff))
+
+
+def _parts(x: torch.Tensor, n: int) -> torch.Tensor:
+    """A batch leaf laid out once a step for its n microbatches: a DTensor
+    as (n, B // n, ...) with each microbatch's rows split as the batch's
+    (`api.split_rows`), so that no microbatch is gathered; a plain tensor
+    as it is."""
+    return split_rows(x, n) if is_dtensor(x) else x
+
+
+def _part(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch i of `_parts`' leaf: rows [i*mb, (i+1)*mb) of the batch,
+    the reference's `x.reshape(n, mb, ...)[i]`."""
+    if is_dtensor(x):
+        return take(x, i)
+    mb = x.shape[0] // n
+    return x[i * mb:(i + 1) * mb]
 
 
 def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
@@ -137,10 +236,9 @@ def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
             lambda p: torch.zeros_like(p, dtype=acc_dt), state.params))
         dev = next(tree_leaves(state.params)).device
         loss = torch.zeros((), dtype=torch.float32, device=dev)
+        parts = {key: _parts(x, n_micro) for key, x in batch.items()}
         for i in range(n_micro):
-            micro = {key: x[i * (x.shape[0] // n_micro):
-                            (i + 1) * (x.shape[0] // n_micro)]
-                     for key, x in batch.items()}
+            micro = {key: _part(x, i, n_micro) for key, x in parts.items()}
             l_i, _, g = grad_fn(state.params, micro)
             g = constrain(g)
             with torch.no_grad():   # g / n_micro in g's dtype, as JAX

@@ -41,6 +41,7 @@ from repro_torch.optim.grad_compression import (compressed_psum,
 from repro_torch.runtime.elastic import ElasticMesh
 from repro_torch.sharding import api, partition as pt
 from repro_torch.train import pipeline as tpipe
+from repro_torch.train import train_step as ts
 from repro_torch.train.train_step import OptState, make_train_step
 from repro_torch.tree import tree_leaves
 
@@ -144,6 +145,60 @@ def check_train_micro(mesh, inputs):
                         True)
 
 
+def pad_labels(labels):
+    """Labels padded (-1) unevenly across the two microbatches of four
+    rows: 48 pads in the first, 2 in the second.  The loss's denominator
+    is counted per microbatch, so any other grouping of the rows changes
+    the loss.  Works in place on a numpy array or a tensor."""
+    labels[0:4, 20:] = -1
+    labels[5, 30:] = -1
+    return labels
+
+
+def check_train_seq(mesh, inputs):
+    """Megatron-SP (the sequence split over "model"), microbatches and
+    labels padded unevenly across them."""
+    cfg = cfg_of("glm4-9b", DENSE)
+    run = RunConfig(model=cfg, mode="train", seq_len=32, global_batch=8,
+                    microbatch=4, remat="dots", fsdp=True, seq_shard=True)
+    batch = SyntheticLM(cfg, run, seed=1, device="cpu").batch(0)
+    batch["labels"] = pad_labels(batch["labels"])
+    seen, loss_fn = [], ts.loss_fn
+
+    def recording(params, micro, *args, **kw):
+        seen.append(str(getattr(micro["labels"], "placements", "plain")))
+        return loss_fn(params, micro, *args, **kw)
+    ts.loss_fn = recording
+    try:
+        out = sharded_step(mesh, cfg, run, state_from(inputs, "dense"),
+                           batch, True)
+    finally:
+        ts.loss_fn = loss_fn
+    out["act_btd"] = str(pt.activation_rules(mesh, cfg, run)["act_btd"])
+    out["labels_seen"] = seen
+    return out
+
+
+def check_split_rows(mesh, inputs):
+    """`api.split_rows` of a (32, 3) batch split over "data" (4 ranks)
+    into n = 2, 4, 8 parts (fewer, as many and more parts than ranks) and
+    16 (parts of 2 rows, which 4 ranks cannot split): each part's rows
+    are the reshape's, and `take` gives part i whole."""
+    x = torch.arange(96).reshape(32, 3)
+    placed = pt.distribute(x, pt.NamedSharding(mesh, pt.P("data")))
+    out = {}
+    for n in (2, 4, 8, 16):
+        parts = api.split_rows(placed, n)
+        want = x.reshape(n, 32 // n, 3)
+        out[f"equal_{n}"] = bool(torch.equal(api.whole(parts), want))
+        out[f"place_{n}"] = str(parts.placements)
+        out[f"take_{n}"] = all(
+            torch.equal(api.whole(api.take(parts, i)), want[i])
+            for i in range(n))
+        out[f"take_place_{n}"] = str(api.take(parts, 0).placements)
+    return out
+
+
 def forward_err(mesh, cfg, run, params, tokens, **kw):
     want, _ = tr.forward(params, cfg, tokens=tokens, **kw)
     with api.policy_scope(pt.make_policy(mesh, cfg, run)):
@@ -190,6 +245,37 @@ def check_moe(mesh, inputs):
             "logit_scale": float(want.abs().max()),
             "dp_groups": policy.meta["dp_groups"],
             "act_gecd": str(policy.rules.get("act_gecd"))}
+
+
+def check_train_moe(mesh, inputs):
+    """A phi3.5-shaped MoE step under the policy (FSDP, grad_shardings):
+    four dispatch groups, one a "data" rank, routed on each rank's rows,
+    against the unsharded step with the same group count."""
+    cfg = cfg_of("phi3.5-moe-42b-a6.6b", MOE)
+    run = RunConfig(model=cfg, mode="train", seq_len=32, global_batch=8,
+                    remat="dots", fsdp=True)
+    state = state_from(inputs, "moe")
+    batch = SyntheticLM(cfg, run, seed=1, device="cpu").batch(0)
+    policy = pt.make_policy(mesh, cfg, run)
+    opt = AdamW(lr=1e-3)
+    with api.policy_scope(api.ShardingPolicy(None, {}, dict(policy.meta))):
+        plain, pm = make_train_step(cfg, run, opt)(state, batch)
+    with api.policy_scope(policy):
+        placed = pt.distribute(state, pt.make_state_shardings(state, mesh,
+                                                              run.fsdp))
+        step = make_train_step(cfg, run, opt, grad_shardings=pt.
+                               make_param_shardings(state.params, mesh,
+                                                    run.fsdp))
+        new, m = step(placed, batch_on(mesh, batch))
+    worst, scale, _ = errors(new.params, plain.params)
+    m_err = errors(new.opt.m, plain.opt.m)
+    return {"loss": float(m["loss"]), "plain_loss": float(pm["loss"]),
+            "aux": float(m["aux"]), "plain_aux": float(pm["aux"]),
+            "grad_norm": float(m["grad_norm"]),
+            "plain_grad_norm": float(pm["grad_norm"]),
+            "param_err": worst, "param_scale": scale,
+            "m_err": m_err[0], "m_scale": m_err[1],
+            "dp_groups": policy.meta["dp_groups"]}
 
 
 def check_decode(mesh, inputs):
@@ -417,9 +503,12 @@ def main():
         checks = {name: (lambda fn: lambda: fn(mesh, inputs))(fn)
                   for name, fn in (("train", check_train),
                                    ("train_micro", check_train_micro),
+                                  ("train_seq", check_train_seq),
+                                  ("split_rows", check_split_rows),
                                    ("context_parallel",
                                     check_context_parallel),
                                    ("moe", check_moe),
+                                  ("train_moe", check_train_moe),
                                    ("decode", check_decode),
                                    ("families", check_families))}
     elif WORLD == "elastic":

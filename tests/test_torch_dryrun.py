@@ -393,10 +393,10 @@ def test_ssd_decode_on_the_512_rank_mesh():
 
 
 def _small(arch, **kw):
-    return dataclasses.replace(
-        get_config(arch), n_layers=2, d_model=64, n_heads=4, kv_heads=2,
-        head_dim=16, d_ff=128, vocab=512, param_dtype="float32",
-        compute_dtype="float32", **kw)
+    return dataclasses.replace(get_config(arch), **dict(dict(
+        n_layers=2, d_model=64, n_heads=4, kv_heads=2, head_dim=16,
+        d_ff=128, vocab=512, param_dtype="float32",
+        compute_dtype="float32"), **kw))
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill"])
@@ -432,12 +432,85 @@ def test_a_one_rank_trace_counts_what_the_real_step_counts(mode):
     assert r["flops_per_chip"] == counter.get_total_flops() > 0
 
 
+# ------------------- sharded training steps on fake worlds ------------------
+
+def _train_cell(arch, mesh_shape, cfg, **kw):
+    run = RunConfig(model=cfg, mode="train", seq_len=64, global_batch=32,
+                    microbatch=16, fsdp=True, **kw)
+    return dryrun.lower_cell(arch, "train_4k", run_override=run,
+                             mesh_shape=mesh_shape, device="cpu")
+
+
+def _split_cell(arch, cfg, mesh_shape=(4, 2), **kw):
+    """A microbatched train cell on a fake 8-rank world ((4, 2) by
+    default) and on one rank: (the 8-rank report, its FLOPs over an
+    eighth of the one rank's)."""
+    one = _train_cell(arch, (1, 1), cfg, **kw)
+    r = _train_cell(arch, mesh_shape, cfg, **kw)
+    assert r["n_chips"] == 8 and r["flops_per_chip"] > 0
+    return r, r["flops_per_chip"] / (one["flops_per_chip"] / 8)
+
+
+def test_microbatches_and_the_loss_stay_split():
+    """A stablelm-shaped step of two microbatches of 16 x 64 tokens on a
+    fake (4, 2) ("data", "model") world: each chip counts an eighth of
+    the one-rank trace's FLOPs (2%), and its peak stays under the bytes
+    of one whole (microbatch, S, V) float32 tensor.  Slicing a microbatch
+    out of the split batch would gather it whole (DTensor slices a split
+    dim by gathering it), and a one-hot of whole labels would force the
+    vocabulary-split logits whole: 1.13 x the FLOPs and such a tensor on
+    every rank."""
+    cfg = _small("stablelm-1.6b")
+    r, ratio = _split_cell("stablelm-1.6b", cfg, remat="full")
+    assert abs(ratio - 1) <= 0.02, ratio
+    whole_logits = 16 * 64 * 512 * 4
+    assert r["memory"]["peak_bytes"] < whole_logits, r["memory"]
+
+
+@pytest.mark.parametrize("arch,fields,kw", [
+    ("stablelm-1.6b", {}, {"seq_shard": True, "remat": "dots"}),
+    ("recurrentgemma-2b", {"n_heads": 5, "kv_heads": 1, "lru_width": 64,
+                           "local_window": 16, "n_layers": 3},
+     {"remat": "full"})], ids=["megatron_sp", "context_parallel"])
+def test_a_step_with_a_split_sequence_traces(arch, fields, kw):
+    """The sequence split over "model": by Megatron-SP (`seq_shard`), and
+    by context parallelism (a recurrentgemma-shaped model, RG-LRU blocks
+    and windowed attention, whose 5 heads do not divide the model axis).
+    Both trace forward and backward, each chip counting an eighth of the
+    one-rank FLOPs.  DTensor's own matmul rule refuses Megatron-SP's
+    flatten of a (B, S, d) split along B and S, and a whole q would
+    attend every query on every rank of the model axis."""
+    cfg = _small(arch, **fields)
+    _, ratio = _split_cell(arch, cfg, **kw)
+    assert abs(ratio - 1) <= 0.02, ratio
+
+
+@pytest.mark.parametrize("mesh_shape,state", [((4, 2), 16), ((2, 4), 17)],
+                         ids=["split_in_projection", "whole_in_projection"])
+def test_an_ssd_step_shares_its_heads_over_the_model_axis(mesh_shape,
+                                                          state):
+    """A mamba2-shaped step (16 heads of 8, 2 SSD chunks a row) on a fake
+    8-rank world: each "model" rank runs its share of the heads on its
+    rows, an eighth of the one-rank FLOPs but the heads' shared C B^T
+    products, which every rank of "model" repeats (5%; 3.9% on the 4-wide
+    axis).  With 17 states the in-projection's 306 features do
+    not divide the 4-wide model axis, so the parameter rules keep it
+    whole there, as mamba2-130m's 3352 on 16, and its product runs on a
+    share of the sequence.  DTensor's own rules raise in the SSD's
+    products (the flattened, split heads) and, on torch 2.11, in the
+    causal convolution's `F.pad`."""
+    cfg = _small("mamba2-130m", d_ff=0, n_heads=0, kv_heads=0,
+                 ssm_state=state, ssm_head_dim=8, ssm_chunk=32)
+    _, ratio = _split_cell("mamba2-130m", cfg, mesh_shape, remat="dots")
+    assert abs(ratio - 1) <= 0.05, ratio
+
+
 # ------------------------ the reference's slow pair ------------------------
 
-def _run_sub(code: str) -> str:
+def _run_sub(code: str, timeout: int = 560) -> str:
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=560)
+                         capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-4000:]
     return out.stdout
 
@@ -455,6 +528,37 @@ assert r['dominant'] is not None
 print('OK', r['dominant'])
 """)
     assert "OK" in out
+
+
+# The reference's train_4k FLOPs a chip on 16x16
+# (`probes/ref_dryrun_train.py`) and the tolerance each is held to:
+# stablelm-1.6b's equals phase 15's count on the card scaled from (8,
+# 4096) tokens on one chip to (256, 4096) on 256; llama4-maverick, the
+# train cell `chip_smoke.py` phase 19 leaves out for its trace's time,
+# counts its routing's gathers and sorts as no products.
+TRAIN_CELLS = {"stablelm-1.6b": (4.8550310313984e13, 1e-3),
+               "llama4-maverick-400b-a17b": (5.0425063538688e14, 0.05)}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("arch", list(TRAIN_CELLS))
+def test_train_cell_fits_on_the_production_mesh(arch):
+    """A train_4k cell on a fake 256-rank world, 16x16: each chip peaks
+    under an H100's 80 GB and counts the reference's FLOPs (stablelm
+    traced at 139.079 GB and 1.0731e14 while every rank held each
+    microbatch's logits whole and repeated its products)."""
+    flops, tol = TRAIN_CELLS[arch]
+    out = _run_sub(f"""
+from repro_torch.launch.dryrun import lower_cell
+r = lower_cell({arch!r}, 'train_4k', device='cpu')
+assert r['n_chips'] == 256, r
+peak = r['memory']['peak_bytes']
+assert peak < 80e9, peak
+rel = abs(r['flops_per_chip'] / {flops!r} - 1)
+assert rel <= {tol!r}, (r['flops_per_chip'], rel)
+print('OK train', peak, r['flops_per_chip'])
+""", timeout=1500)
+    assert "OK train" in out
 
 
 @pytest.mark.slow

@@ -241,11 +241,14 @@ def _jax_state(name, fields, arch):
     return out, state
 
 
-def _jax_loss(state, fields, arch, **kw):
+def _jax_loss(state, fields, arch, pad=False, **kw):
     jcfg, jrun = _jax_run(fields, arch, remat="dots", fsdp=True, **kw)
     opt = JAdamW(lr=1e-3)
-    _, m = jax.jit(jts.make_train_step(jcfg, jrun, opt))(
-        state, JSyntheticLM(jcfg, jrun, seed=1).batch(0))
+    batch = JSyntheticLM(jcfg, jrun, seed=1).batch(0)
+    if pad:
+        batch = dict(batch, labels=jnp.asarray(
+            ranks.pad_labels(np.array(batch["labels"]))))
+    _, m = jax.jit(jts.make_train_step(jcfg, jrun, opt))(state, batch)
     return float(m["loss"])
 
 
@@ -307,6 +310,8 @@ def lm_world(tmp_path_factory):
             "dense": _jax_loss(states["dense"], ranks.DENSE, "glm4-9b"),
             "dense_micro": _jax_loss(states["dense"], ranks.DENSE,
                                      "glm4-9b", microbatch=4),
+            "dense_seq": _jax_loss(states["dense"], ranks.DENSE, "glm4-9b",
+                                   pad=True, microbatch=4, seq_shard=True),
             "context": _jax_loss(states["context"], ranks.CONTEXT,
                                  "glm4-9b")}
     finally:
@@ -351,6 +356,38 @@ def test_sharded_train_step_matches_jax_and_the_unsharded_step(
     assert out["placements"] == "(Shard(dim=1), Shard(dim=2))"
 
 
+def test_sharded_step_with_a_split_sequence_and_padded_microbatches(
+        lm_world):
+    """Megatron-SP on the (4, 2) mesh (the sequence split over "model"),
+    two microbatches whose labels are padded unevenly (48 and 2 pads, so
+    a microbatch holding other rows would count another denominator),
+    FSDP and grad_shardings: held to JAX's loss and to the unsharded
+    step.  Each microbatch reaches the loss with its rows split over
+    "data" as the batch's, where slicing it out of the batch would
+    gather it whole on every rank (and DTensor's rules raise on fake
+    tensors at the split sequence's flatten)."""
+    out = lm_world.check("train_seq")
+    assert out["act_btd"] == "PartitionSpec('data', 'model', None)"
+    # the plain step's two microbatches, then the sharded step's
+    assert out["labels_seen"] == ["plain"] * 2 + [
+        "(Shard(dim=0), Replicate())"] * 2, out["labels_seen"]
+    _step_close(out, lm_world.jax["dense_seq"])
+
+
+def test_split_rows_lays_microbatches_out_on_each_rank(lm_world):
+    """`sharding.api.split_rows` on 4 "data" ranks into 2, 4 and 8 parts:
+    the reshape's rows, each part split over "data" (one all-to-all), and
+    `take` returns part i laid out as the batch; parts of 2 rows, which 4
+    ranks cannot split, come back whole."""
+    out = lm_world.check("split_rows")
+    for n in (2, 4, 8, 16):
+        assert out[f"equal_{n}"] and out[f"take_{n}"], (n, out)
+    for n in (2, 4, 8):
+        assert out[f"place_{n}"] == "(Shard(dim=1), Replicate())", out
+        assert out[f"take_place_{n}"] == "(Shard(dim=0), Replicate())", out
+    assert out["place_16"] == "(Replicate(), Replicate())", out
+
+
 def test_context_parallel_rule_when_heads_do_not_divide(lm_world):
     """Three heads over a model axis of 2: q whole along heads, k and v
     split on the sequence; both attention routes and a step (with
@@ -371,6 +408,26 @@ def test_moe_forward_under_the_policy(lm_world):
     assert out["dp_groups"] == 4
     assert out["act_gecd"] == "PartitionSpec('data', 'model', None, None)"
     assert out["err"] <= 1e-5 * out["logit_scale"], out
+
+
+def test_moe_step_routed_on_each_ranks_rows(lm_world):
+    """A 2-layer phi3.5-moe training step under the policy: each of the
+    four "data" ranks routes, dispatches and combines its own group's
+    rows, the experts split on "model"; loss, aux, gradient norm and the
+    state (parameters, Adam m) against the unsharded step with the same
+    four groups.  Each rank's expert gradients are its rows' share, summed
+    over "data" (DTensor's `to_local` would call them replicated, and
+    the stacks' gradient would be one rank's share)."""
+    out = lm_world.check("train_moe")
+    assert out["dp_groups"] == 4
+    assert abs(out["loss"] - out["plain_loss"]) <= 1e-6 * abs(
+        out["plain_loss"]), out
+    assert abs(out["aux"] - out["plain_aux"]) <= 1e-6 * abs(
+        out["plain_aux"]), out
+    assert abs(out["grad_norm"] - out["plain_grad_norm"]) <= \
+        1e-5 * out["plain_grad_norm"], out
+    assert out["param_err"] <= 1e-5 * out["param_scale"], out
+    assert out["m_err"] <= 1e-5 * out["m_scale"], out
 
 
 def test_prefill_and_decode_under_the_policy(lm_world):
