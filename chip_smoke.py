@@ -2880,6 +2880,87 @@ REF_TRAIN_4K = {
     "musicgen-medium": (10650702844, 6.4398739636224e13, 1.72252741736e11),
     "mamba2-130m": (2350626212, 3.996735504384e12, 8.5419228732e10),
 }
+# Phase 19 (d): every serving cell the dry run traces on 16x16 (the
+# long_500k cells of full-attention archs are skipped on both sides) and
+# the paper's solver at n=2048 (one stage) and n=16384 (two).  The
+# reference's, a chip's (peak bytes, FLOPs, collective bytes), keyed
+# "arch|shape", as `PYTHONPATH=src python probes/ref_dryrun_serve.py`
+# prints them (jax 0.9.0, 256 fake host devices, on a host).
+REF_SERVE = {
+    "blockamc-solver|n2048_s1": (157378376, 24903680.0, 5587976.0),
+    "blockamc-solver|n16384_s2": (844361544, 16099573760.0, 231107592.0),
+    "recurrentgemma-2b|prefill_32k":
+        (5371148016, 29334790471680.0, 48257264144.0),
+    "recurrentgemma-2b|decode_32k": (371513492, 2977955840.0, 51483776.0),
+    "recurrentgemma-2b|long_500k": (60312696, 30474240.0, 481884.0),
+    "llama4-maverick-400b-a17b|prefill_32k":
+        (23198684104, 239144037908480.0, 270685728784.0),
+    "llama4-maverick-400b-a17b|decode_32k":
+        (26542204924, 74535403520.0, 6378538880.0),
+    "phi3.5-moe-42b-a6.6b|prefill_32k":
+        (8581007936, 133178378944512.0, 122233536528.0),
+    "phi3.5-moe-42b-a6.6b|decode_32k":
+        (8990844348, 90596966400.0, 902047872.0),
+    "pixtral-12b|prefill_32k": (6520656592, 177296417751040.0, 118344990736.0),
+    "pixtral-12b|decode_32k": (10025609132, 22313697280.0, 206602368.0),
+    "glm4-9b|prefill_32k": (4690658416, 154790776537088.0, 95828705296.0),
+    "glm4-9b|decode_32k": (2788086284, 19516096512.0, 161892480.0),
+    "stablelm-1.6b|prefill_32k": (1980244784, 36490093527040.0, 28477161488.0),
+    "stablelm-1.6b|decode_32k": (11636419660, 4659871744.0, 27672704.0),
+    "command-r-35b|prefill_32k":
+        (9861104464, 406819826565120.0, 191415320592.0),
+    "command-r-35b|decode_32k": (10905622444, 51757711360.0, 518504576.0),
+    "chatglm3-6b|prefill_32k": (4538762224, 108353501528064.0, 65649311760.0),
+    "chatglm3-6b|decode_32k": (1931547148, 13493075968.0, 110775424.0),
+    "musicgen-medium|prefill_32k":
+        (1767840792, 54425826361344.0, 70747594768.0),
+    "musicgen-medium|decode_32k": (17164403860, 6646923264.0, 37232768.0),
+    "mamba2-130m|prefill_32k": (1433217904, 926112006144.0, 38855439376.0),
+    "mamba2-130m|decode_32k": (327004704, 133693440.0, 16219520.0),
+    "mamba2-130m|long_500k": (47648580, 1056768.0, 1622924.0),
+}
+# The targets: the cells repaired for the production mesh (FLOPs a chip
+# at most this many times the reference's); every other cell counts the
+# reference's to SERVE_EQUAL_TOL, except a dense prefill on the card's
+# route, whose flash op counts the causal pairs alone (S (S + 1) / 2 a
+# head, `kernels/ops.flash_flops`) where the reference's chunked
+# attention counts the masked S^2: at most the reference's.
+SERVE_TARGETS = {
+    "blockamc-solver|n2048_s1": 2.0, "blockamc-solver|n16384_s2": 2.0,
+    "musicgen-medium|prefill_32k": 1.05,
+    "llama4-maverick-400b-a17b|prefill_32k": 1.05,
+    "phi3.5-moe-42b-a6.6b|decode_32k": 1.05,
+    "llama4-maverick-400b-a17b|decode_32k": 1.05,
+    "recurrentgemma-2b|prefill_32k": 1.05,
+    "mamba2-130m|decode_32k": 1.15, "mamba2-130m|long_500k": 1.15,
+    "mamba2-130m|prefill_32k": 1.15,
+    # left as it was: 8 attention layers' p . v over each rank's 128 cache
+    # slots of all 10 heads, where the reference's partitioner halves the
+    # heads (f32[256,5]): 2.6e6 of 3.0e7 FLOPs
+    "recurrentgemma-2b|long_500k": 1.10,
+}
+SERVE_EQUAL_TOL = 1e-3
+
+
+def _serve_label(key):
+    arch, shape = key.split("|")
+    if arch == "blockamc-solver":
+        n, stages = (int(x[1:]) for x in shape.split("_"))
+        return f"BlockAMC solver n={n} s={stages}"
+    return f"{arch} {shape}"
+
+
+def _serve_spec(key):
+    arch, shape = key.split("|")
+    if arch == "blockamc-solver":
+        n, stages = (int(x[1:]) for x in shape.split("_"))
+        return ("solver", dict(n=n, stages=stages))
+    return ("lm", dict(arch=arch, shape_key=shape))
+
+
+DRYRUN_CELLS = dict(DRYRUN_CELLS, **{
+    _serve_label(key): _serve_spec(key) for key in REF_SERVE
+    if _serve_label(key) not in DRYRUN_CELLS})
 DRYRUN_FLOP_TOL = 1e-6   # a trace's FLOPs vs FlopCounterMode's on the card:
 #                          the same ops counted by the same formulas
 DRYRUN_PEAK_TOL = 0.15   # a trace's peak vs the card's: the allocator's
@@ -2932,7 +3013,8 @@ def _dryrun_phase(smi, lm_stats, train):
     and phase 12's prefill count the FLOPs `FlopCounterMode` counted on
     the card to DRYRUN_FLOP_TOL, their peak is within DRYRUN_PEAK_TOL of
     the card's, and each measured wall is at least its compute term.
-    (c) The train_4k cells (`_train_cells`).  Returns the reports."""
+    (c) The train_4k cells (`_train_cells`).  (d) The serving and solver
+    cells (`_serve_cells`).  Returns the reports."""
     import concurrent.futures as cf
     import multiprocessing as mp
     import os
@@ -2992,7 +3074,51 @@ def _dryrun_phase(smi, lm_stats, train):
         if not wall >= compute_s:
             _fail(f"the {what} ran faster than its compute term")
     _train_cells(reports, train)
+    _serve_cells(reports)
     return reports
+
+
+def _serve_cells(reports):
+    """Phase 19 (d): each serving cell on 16x16 and both solver cells,
+    traced on fake "cuda" tensors (a dense prefill reaches the flash op),
+    beside the reference's (`REF_SERVE`): the repaired cells within
+    SERVE_TARGETS, the others equal to SERVE_EQUAL_TOL (a flash-route
+    prefill at most the reference's), every peak under a chip's
+    memory."""
+    print("  (d) the serving and solver cells on 16x16, a chip, beside the "
+          "reference's (probes/ref_dryrun_serve.py):")
+    for key, (ref_peak, ref_flops, ref_coll) in REF_SERVE.items():
+        label = _serve_label(key)
+        r = reports[label]
+        peak, flops = r["memory"]["peak_bytes"], r["flops_per_chip"]
+        ratio = flops / ref_flops
+        flash = r.get("flash_calls", 0)
+        target = SERVE_TARGETS.get(key)
+        bound = "" if target is None else f", target <= {target:g}x"
+        print(f"    {label}: FLOPs {flops:.6e} ({ref_flops:.4e}, "
+              f"{ratio:.4f}x{bound}); peak {peak / 1e9:.3f} GB (reference "
+              f"{ref_peak / 1e9:.3f}); collective bytes "
+              f"{r['collective_bytes_per_chip']:.4e} ({ref_coll:.4e}); "
+              f"flash op {flash}; trace {r['compile_s']} s")
+        if not peak < CHIP_BYTES:
+            _fail(f"{label} peaks at {peak / 1e9:.3f} GB a chip, over "
+                  f"{CHIP_BYTES / 1e9:.0f} GB")
+        if target is not None:
+            ok = ratio <= target
+        elif flash:
+            ok = ratio <= 1 + SERVE_EQUAL_TOL
+        else:
+            ok = abs(ratio - 1) <= SERVE_EQUAL_TOL
+        if not ok:
+            _fail(f"{label} counts {ratio:.4f}x the reference's FLOPs a "
+                  f"chip")
+    r = reports["BlockAMC solver n=2048 s=1"]
+    want = (2048 // 16) ** 2 * 4 + 2048 * 4
+    print(f"    the solver's arguments a chip: "
+          f"{r['memory']['argument_bytes']} B (A's 128 x 128 block and b: "
+          f"{want} B)")
+    if r["memory"]["argument_bytes"] != want:
+        _fail("the solver cell's arguments are not A's 1/256 block and b")
 
 
 def _train_cells(reports, train):

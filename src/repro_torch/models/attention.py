@@ -61,12 +61,15 @@ torch releases, and the local form is what a sharded kernel needs:
   the sequence, that gathers them along "model": a core over a share of
   the keys would be silently wrong), the core - the kernel or
   `_chunked_attend` - takes the local tensors with the local rows'
-  positions, and its output is wrapped back with q's placements.  On the
-  chunked route the context-parallel rule also splits q's sequence as
-  k's was split, so each rank attends its share of the queries (with
-  their positions) to the whole keys, where a whole q would repeat the
-  same attention on every rank of "model"; the kernel's causal mask
-  needs the queries from position 0, so its route keeps q whole.
+  positions, and its output is wrapped back with q's placements.  Under
+  the context-parallel rule q's sequence is also split as k's was
+  split, so each rank attends its share of the queries (with their
+  positions) to the whole keys, where a whole q would repeat the same
+  attention on every rank of "model" (musicgen-medium's 24 heads and
+  llama4-maverick's 40 on a 16-wide axis).  The kernel's causal mask
+  needs the queries from position 0, so that split takes the chunked
+  route, the reference's prefill route; only use_flash=True holds the
+  kernel there, with q whole on every rank.
   Projections whose features the heads do not split evenly are gathered
   before the heads are split (`_heads`);
 - prefill lays its cache out by "act_cache", the layout decode keeps it
@@ -213,14 +216,16 @@ def _records_grad(*tensors) -> bool:
 
 
 def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
-            window: Optional[int] = None, q_chunk: int = 1024
-            ) -> torch.Tensor:
+            window: Optional[int] = None, q_chunk: int = 1024,
+            keep_flash: bool = False) -> torch.Tensor:
     """Causal attention of q (B, S, H, hd) and k, v (B, S, KV, hd) by
     one route: `_flash_local` (one `ops.flash_attention` call) or
     `_chunked_attend`.  KV heads are repeated and q, k, v laid out first
     (`_layout`); DTensors are attended on each rank's local batch rows
-    and heads, and on the chunked route under context parallelism on its
-    share of the queries (module docstring).  Returns (B, S, H*hd)."""
+    and heads, and under context parallelism on its share of the
+    queries by the chunked route, unless `keep_flash` (use_flash=True)
+    holds the kernel's route with q whole (module docstring).  Returns
+    (B, S, H*hd)."""
     b, s = q.shape[0], q.shape[1]
     q, k, v = _layout(q, k, v, cfg)
 
@@ -232,10 +237,14 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
 
     if is_dtensor(q):           # batch rows and heads split, as q's
         mesh = q.device_mesh
-        if not flash:           # the queries split as k's sequence is
-            q = lay_out(q, mesh, [
-                Shard(1) if p.is_replicate() and r.is_shard(1) else p
-                for p, r in zip(q.placements, k.placements)])
+        seq = [p.is_replicate() and r.is_shard(1) and mesh.size(j) > 1
+               for j, (p, r) in enumerate(zip(q.placements, k.placements))]
+        if any(seq) and flash and keep_flash:
+            seq = [False] * len(seq)    # the kernel's mask starts at query 0
+        if any(seq):            # the queries split as k's sequence is
+            flash = False
+            q = lay_out(q, mesh, [Shard(1) if cut else p
+                                  for p, cut in zip(q.placements, seq)])
         k, v = (lay_out(t, mesh, [Replicate() if p.is_shard(1) else p
                                   for p in q.placements]) for t in (k, v))
         size, off = local_box(q)
@@ -271,7 +280,8 @@ def attention(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = _qkv(params, x, positions, cfg)
     flash = _flash_route(use_flash, window, cfg.head_dim, q.dtype,
                          q.is_cuda, _records_grad(q, k, v))
-    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk)
+    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk,
+                  keep_flash=use_flash is True)
     return mm(out, params["wo"])
 
 
@@ -290,7 +300,8 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     q, k, v = _qkv(params, x, positions, cfg)
     flash = _flash_route(use_flash, window, cfg.head_dim, q.dtype,
                          q.is_cuda, _records_grad(q, k, v))
-    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk)
+    out = _attend(q, k, v, positions, cfg, flash, window, q_chunk,
+                  keep_flash=use_flash is True)
 
     k, v = whole(k), whole(v)
     shape = (b, cache_len) + tuple(k.shape[2:])

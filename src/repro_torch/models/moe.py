@@ -53,8 +53,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (einsum, init_dense, mm, swiglu_ffn,
                                        swiglu_ffn_init)
 from repro_torch.sharding.api import (get_meta, is_dtensor, lay_out,
-                                      on_local, replicated, seq_whole,
-                                      shard, whole)
+                                      local_box, on_local, replicated,
+                                      rule_placements, seq_whole, shard,
+                                      whole)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
@@ -159,8 +160,11 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
     if is_dtensor(x):
         x = seq_whole(x)
         rows = _group_rows(x, g)
-        if rows is not None:
-            out, aux = _moe_on_rows(params, x, cfg, rows, g, cap)
+        parts = None if rows is not None else _part_rows(x, g, params)
+        if rows is not None or parts is not None:
+            out, aux = (_moe_on_rows(params, x, cfg, rows, g, cap)
+                        if rows is not None else
+                        _moe_on_parts(params, x, cfg, parts, g, cap))
             if cfg.shared_expert:
                 out = out + swiglu_ffn(params["shared"], x)
             return out, aux
@@ -206,6 +210,23 @@ def _group_rows(x: torch.Tensor, g: int):
     return rows if ways == g else None
 
 
+def _part_rows(x: torch.Tensor, g: int, params: Dict):
+    """The mesh dims that split the DTensor x (B, S, d)'s batch rows finer
+    than the g dispatch groups are cut - each rank holding a part of one
+    group - and nothing else, or None; None too while autograd records
+    (`_moe_on_parts` runs outside it: decode and prefill)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x] + list(params.values())
+            if isinstance(t, torch.Tensor)):
+        return None
+    place = x.placements
+    rows = [j for j, p in enumerate(place) if p.is_shard(0)]
+    if any(p.is_shard() and j not in rows for j, p in enumerate(place)):
+        return None
+    ways = math.prod(x.device_mesh.size(j) for j in rows)
+    return rows if ways > g and ways % g == 0 else None
+
+
 def _moe_on_rows(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
                  g: int, cap: int):
     """`moe_ffn` where each rank holds one dispatch group's rows (mesh
@@ -247,6 +268,106 @@ def _moe_on_rows(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
         return _combine(yl, ew, order, keep, dest, st, tl).reshape(
             b // g, s, d)
     return on_local(combine, y, probs, split=(0,), place=split), aux
+
+
+def _moe_on_parts(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
+                  g: int, cap: int):
+    """`moe_ffn` where the ranks of mesh dims `rows` split the batch rows
+    finer than the g groups (decode's small batches): each rank routes
+    its own tokens (the router's product and the top-k on its rows);
+    only the (token, choice) experts are gathered over `rows`, from which
+    every rank works out the capacity slots of the groups as the
+    unsharded dispatch does (the same drops); each rank writes its own
+    tokens into its share of the dispatch buffer, the shares are summed
+    over `rows` for the rank's experts ("act_gecd"'s expert split), and
+    the buffer's (group, expert, slot) items are dealt out over the
+    `rows` ranks (ceil(items / ranks) each), each item's SwiGLU a
+    product with its expert's stacks; the outputs are gathered whole and
+    each rank combines its own tokens.  No gradient (`_part_rows`).
+    Returns (out (B, S, d) split as x, aux)."""
+    mesh, e, k = x.device_mesh, cfg.n_experts, cfg.top_k
+    x = lay_out(x, mesh, [Replicate() if p.is_partial() else p
+                          for p in x.placements])
+    b, s, d = x.shape
+    tl = b * s // g
+    ways = math.prod(mesh.size(j) for j in rows)
+    split = [Shard(0) if j in rows else Replicate() for j in range(mesh.ndim)]
+    whole_place = [Replicate()] * mesh.ndim
+    share = [Partial() if j in rows else Replicate()
+             for j in range(mesh.ndim)]
+    gecd = rule_placements("act_gecd", (g, e, cap, d)) or whole_place
+    by_expert = [Shard(1) if p.is_shard(1) else Replicate() for p in gecd]
+    probs = on_local(lambda xl, r: _probs(r, xl.reshape(-1, d)), x,
+                     replicated(params["router"]), split=(0,), place=split)
+    size, off = local_box(x)
+    lo, t_loc = off[0] * s, size[0] * s
+    gi, first = lo // tl, lo % tl             # the rank's group, its offset
+    local = probs.to_local()
+    mine_w, mine_i = (t[:, :k] for t in torch.sort(
+        local, dim=-1, descending=True, stable=True))
+    gate_i = whole(DTensor.from_local(mine_i, mesh, split, run_check=False))
+    order, st, keep, dest = (t[gi] for t in _slots(gate_i, g, e, cap))
+    me = lay_out(on_local(lambda p: p.mean(dim=0) / ways, probs, split=(0,),
+                          place=share), mesh, whole_place)
+    ones = F.one_hot(mine_i[:, 0], e).to(torch.float32).mean(dim=0) / ways
+    ce = lay_out(DTensor.from_local(ones, mesh, share, run_check=False),
+                 mesh, whole_place)
+    aux = e * torch.sum(me * ce)
+
+    tok = st - first                          # the slot's token, locally
+    mine = (tok >= 0) & (tok < t_loc)
+    tok = tok.clamp(0, t_loc - 1)
+    xl = x.to_local().reshape(t_loc, d)
+    buf = xl.new_zeros((g, e * cap + 1, d))
+    buf[gi, torch.where(mine & keep, dest, e * cap)] = xl[tok]
+    buf = DTensor.from_local(buf[:, :e * cap].reshape(g, e, cap, d), mesh,
+                             share, run_check=False)
+    buf = lay_out(lay_out(buf, mesh, [q if q.is_shard() else p
+                                      for p, q in zip(share, by_expert)]),
+                  mesh, by_expert)
+    y = _expert_items(params, buf, rows)      # (g, E, C, d) whole
+    yf = torch.cat([y.reshape(g, e * cap, d), y.new_zeros((1, d))[None]
+                    .expand(g, 1, d)], dim=1)
+    ew = (mine_w / mine_w.sum(dim=-1, keepdim=True)).reshape(-1).to(x.dtype)
+    at = (order - first * k).clamp(0, t_loc * k - 1)
+    w = torch.where(keep & mine, ew[at], 0.0)
+    contrib = yf[gi, dest] * w[:, None]
+    out = contrib.new_zeros((t_loc, d)).index_add_(0, tok, contrib)
+    return DTensor.from_local(out.reshape(size[0], s, d), mesh, split,
+                              run_check=False), aux
+
+
+def _expert_items(params: Dict, buf: DTensor, rows) -> torch.Tensor:
+    """The experts' SwiGLU on the dispatch buffer `buf` (g, E, C, d),
+    whole but for its experts' split: its (group, expert, slot) items
+    dealt out over the mesh dims `rows` (ceil(items / ranks) each, in
+    the ranks' row-major order), each with its expert's stacks; the
+    result gathered whole on every rank."""
+    mesh = buf.device_mesh
+    g, _, cap, d = buf.shape
+    local = buf.to_local()
+    e_loc = local.shape[1]
+    n_items = g * e_loc * cap
+    coord, ways, r = mesh.get_coordinate(), 1, 0
+    for j in rows:
+        r, ways = r * mesh.size(j) + coord[j], ways * mesh.size(j)
+    width = -(-n_items // ways)
+    lo, hi = min(r * width, n_items), min((r + 1) * width, n_items)
+    experts = [(i // cap) % e_loc for i in range(lo, hi)]
+    items = local.reshape(n_items, 1, d)[lo:hi]
+    stacks = [lay_out(params[name], mesh, [
+        Shard(0) if p.is_shard(1) else Replicate() for p in buf.placements]
+    ).to_local() for name in ("gate", "up", "down")]
+    at = torch.tensor(experts, dtype=torch.long, device=local.device)
+    gate, up, down = (t[at] for t in stacks)
+    h = F.silu(torch.bmm(items, gate)) * torch.bmm(items, up)
+    y = F.pad(torch.bmm(h, down)[:, 0], (0, 0, 0, width - (hi - lo)))
+    place = [Shard(1) if j in rows else Shard(0) if p.is_shard(1)
+             else Replicate() for j, p in enumerate(buf.placements)]
+    y = whole(DTensor.from_local(y[None], mesh, place, run_check=False))
+    m = y.shape[0]
+    y = y[:, :n_items].reshape(m, g, e_loc, cap, d)
+    return y.transpose(0, 1).reshape(g, m * e_loc, cap, d)
 
 
 def _experts(params: Dict, buf: torch.Tensor) -> torch.Tensor:

@@ -59,9 +59,18 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
 
 
 def _gates(params: Dict, u: torch.Tensor):
-    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32."""
-    r = torch.sigmoid(mm(u, params["w_a"]).to(torch.float32))
-    i = torch.sigmoid(mm(u, params["w_x"]).to(torch.float32))
+    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32.  For a
+    DTensor u the gates' products are laid out as u is (rows and
+    channels split, the sequence whole) before their nonlinearity: a
+    product over u's split channels is a partial sum, which DTensor
+    would otherwise reduce into a split of the sequence, and the scan
+    needs the sequence whole."""
+    def gate(w):
+        z = mm(u, params[w])
+        if is_dtensor(z):
+            z = lay_out(z, z.device_mesh, u.placements)
+        return torch.sigmoid(z.to(torch.float32))
+    r, i = gate("w_a"), gate("w_x")
     log_a = -_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))

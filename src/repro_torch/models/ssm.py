@@ -65,12 +65,6 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict:
     }
 
 
-def _split_proj(params: Dict, x: torch.Tensor, cfg: ModelConfig):
-    d_inner, h, p, n = _dims(cfg)
-    zxbcdt = mm(x, params["in_proj"])
-    return torch.split(zxbcdt, [d_inner, d_inner, 2 * n, h], dim=-1)
-
-
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d, then SiLU.  u: (B, S, C), w: (K, C)."""
     k, s = w.shape[0], u.shape[1]
@@ -255,38 +249,78 @@ def ssm_decode(params: Dict, x_t: torch.Tensor, cache: Dict,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One token.  x_t: (B, 1, d).  Updates `cache` in place and returns
     (out, cache).  A DTensor cache runs on each rank's batch rows: the
-    state, its conv history and the projections are laid out by the
-    state's batch split (a cache laid out otherwise is written back
-    after), and the recurrence runs on local tensors (DTensor's einsum
-    rules would split the heads over the model axis unevenly)."""
-    z, xs, bc, dt = _split_proj(params, x_t, cfg)
+    in-projection's features are shared out over the mesh dims that
+    split neither the rows nor the weight (`_columns_apart`), the state,
+    its conv history and the projection are laid out by the state's
+    batch split (a cache laid out otherwise is written back after), and
+    the recurrence runs on local tensors - the state's update on every
+    rank that holds it, each rank's share of the channels read out
+    (`_head_share` over the state's whole dims: mamba2's 1536 channels
+    on 16 or 256 ranks) and gathered."""
     state, conv = cache["state"], cache["conv"]
     weights = [params[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip")]
+    d_inner = _dims(cfg)[0]
     if is_dtensor(state):
         mesh = state.device_mesh
         rows = [p if p.is_shard(0) else Replicate() for p in state.placements]
+        zx = lay_out(_columns_apart(x_t, params["in_proj"]), mesh, rows)
+        chans, by_chan, _ = _head_share(mesh, rows, d_inner)
         st, cv = (lay_out(t, mesh, rows) for t in (state, conv))
-        y = on_local(_decode_core, st, cv,
-                     *(lay_out(t, mesh, rows) for t in (xs, bc, dt)),
-                     *(whole(w) for w in weights), cfg, split=(0,),
-                     place=rows)
+        y = on_local(functools.partial(_decode_core, chans=chans), st, cv,
+                     zx, *(whole(w) for w in weights), cfg, split=(0,),
+                     place=by_chan)
+        y = on_local(lambda t: t[..., :d_inner], lay_out(y, mesh, rows),
+                     split=(0,))
         for dst, src in ((state, st), (conv, cv)):
             if src is not dst:      # a cache laid out otherwise
                 dst.copy_(src)
     else:
-        y = _decode_core(state, conv, xs, bc, dt, *weights, cfg)
-    y = rms_norm(y.to(x_t.dtype) * F.silu(z), params["norm_w"], cfg.norm_eps)
+        zx = mm(x_t, params["in_proj"])
+        y = _decode_core(state, conv, zx, *weights, cfg)
+    y = rms_norm(y.to(x_t.dtype) * F.silu(zx[..., :d_inner]),
+                 params["norm_w"], cfg.norm_eps)
     return mm(y, params["out_proj"]), cache
 
 
-def _decode_core(state, conv, xs, bc, dt, conv_w, dt_bias, a_log, d_skip,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """The decode recurrence of plain tensors: the conv history and the
-    state updated in place; returns y (B, 1, d_inner) in float32 before
-    the gated norm."""
-    b = xs.shape[0]
+def _columns_apart(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for DTensors, w's output features shared out (ceil(N / m) a
+    rank, the last short and padded) over the m ranks of the mesh dims
+    that split neither x nor w, and the product gathered back whole
+    there: mamba2's in-projection of 3352 features, whole on a 16-wide
+    "model" axis, is not repeated on every rank of it (a decode step's
+    one token leaves no sequence to split, `_rows_apart`)."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return mm(x, w)
+    mesh, n = x.device_mesh, w.shape[1]
+    x = lay_out(x, mesh, [Replicate() if p.is_partial() else p
+                          for p in x.placements])
+    over = [j for j, (p, q) in enumerate(zip(x.placements, w.placements))
+            if p.is_replicate() and q.is_replicate() and mesh.size(j) > 1]
+    if not over:
+        return mm(x, w)
+    (first, end, width), _, _ = _head_share(mesh, [
+        Replicate() if j in over else Shard(0) for j in range(mesh.ndim)], n)
+
+    def share(wl):
+        return F.pad(wl[:, first:end], (0, width - (end - first)))
+    cols = on_local(share, w, split=(0, 1), place=[
+        Shard(1) if j in over else q for j, q in enumerate(w.placements)])
+    out = mm(x, cols)
+    out = lay_out(out, mesh, [Replicate() if j in over else p
+                              for j, p in enumerate(out.placements)])
+    return on_local(lambda t: t[..., :n], out, split=range(out.dim() - 1))
+
+
+def _decode_core(state, conv, zx, conv_w, dt_bias, a_log, d_skip,
+                 cfg: ModelConfig, chans=None) -> torch.Tensor:
+    """The decode recurrence of plain tensors from the in-projection zx
+    (B, 1, F): the conv history and the state updated in place; returns
+    y (B, 1, d_inner) in float32 before the gated norm, or, for `chans`
+    = (first, end, width), its channels [first, end) padded to width."""
+    b = zx.shape[0]
     d_inner, h, p, n = _dims(cfg)
     f32 = torch.float32
+    _, xs, bc, dt = torch.split(zx, [d_inner, d_inner, 2 * n, h], dim=-1)
     hist = torch.cat([conv, torch.cat([xs, bc], dim=-1)], dim=1)
     conv_out = F.silu(torch.sum(hist * conv_w[None], dim=1, keepdim=True))
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
@@ -296,8 +330,15 @@ def _decode_core(state, conv, xs, bc, dt, conv_w, dt_bias, a_log, d_skip,
     xbar = xh.to(f32) * dt_t[..., None]
     upd = torch.einsum("bn,bhp->bhpn", bmat[:, 0].to(f32), xbar)
     new_state = state * decay[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].to(f32), new_state)
-    y = y + d_skip[:, None] * xh.to(f32)
     state.copy_(new_state)
     conv.copy_(hist[:, 1:, :])
-    return y.reshape(b, 1, d_inner)
+    if chans is None:
+        y = torch.einsum("bn,bhpn->bhp", cmat[:, 0].to(f32), new_state)
+        y = y + d_skip[:, None] * xh.to(f32)
+        return y.reshape(b, 1, d_inner)
+    first, end, width = chans
+    y = torch.einsum("bn,bcn->bc", cmat[:, 0].to(f32),
+                     new_state.reshape(b, h * p, n)[:, first:end])
+    y = y + (d_skip.repeat_interleave(p)[first:end]
+             * xh.reshape(b, h * p)[:, first:end].to(f32))
+    return F.pad(y, (0, width - (end - first)))[:, None]

@@ -382,6 +382,17 @@ def shard(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
+def rule_placements(name: str, shape) -> Optional[list]:
+    """The placements `shard` gives a tensor of `shape` under the active
+    policy's rule for `name` (None with no policy or an unbound name)."""
+    pol = _ACTIVE
+    spec = None if pol is None else pol.rules.get(name)
+    if spec is None:
+        return None
+    from repro_torch.sharding.partition import placements
+    return _fit(placements(spec, pol.mesh), shape, pol.mesh)
+
+
 def _fit(place, shape, mesh) -> list:
     """`place` with each split of a dim that its mesh dims do not divide
     evenly, or of a dim of one, made Replicate(): the port never splits

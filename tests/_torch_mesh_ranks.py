@@ -373,6 +373,122 @@ def check_families(mesh, inputs):
     return out
 
 
+def _rel(got, want):
+    return float((api.whole(got) - want).abs().max() / want.abs().max())
+
+
+def _serve(cfg, run, params, mesh, tokens, steps=2):
+    """Prefill of `tokens`, then `steps` greedy decode steps, unsharded
+    (with the policy's dispatch-group hint) and under the policy: the
+    worst relative error of the logits and of the caches."""
+    policy = pt.make_policy(mesh, cfg, run)
+    s = tokens.shape[1]
+
+    def go(p, toks):
+        outs = []
+        with torch.no_grad():
+            logits, cache = tr.prefill(p, cfg, tokens=toks,
+                                       cache_len=s + steps,
+                                       cache_dtype=torch.float32)
+            outs.append(logits)
+            for i in range(steps):
+                ids = api.whole(logits).argmax(-1)
+                logits, cache = tr.decode_step(p, cache, ids, s + i, cfg)
+                outs.append(logits)
+        return outs, cache
+    with api.policy_scope(api.ShardingPolicy(None, {}, dict(policy.meta))):
+        want, want_cache = go(params, tokens)
+    with api.policy_scope(policy):
+        got, got_cache = go(pt.distribute(params, pt.make_param_shardings(
+            params, mesh, run.fsdp)), pt.distribute(
+                tokens, pt.batch_sharding(mesh, cfg, run)))
+    return {"err": max(_rel(g, w) for g, w in zip(got, want)),
+            "cache_err": max(_rel(g, w) for g, w in zip(
+                tree_leaves(got_cache), tree_leaves(want_cache))
+                if w.abs().max() > 0)}
+
+
+def check_serving(mesh, inputs):
+    """The serving paths repaired for the production mesh, each under its
+    policy against its unsharded call: the context-parallel prefill's
+    default route (three heads over "model"), the MoE decode with fewer
+    dispatch groups than "data" ranks (one group of eight tokens over
+    four; capacity factor 1, so slots drop), the SSD decode (3 heads and
+    227 in-projection features, neither dividing "model"), and the RG-LRU
+    prefill."""
+    from repro_torch.models import attention, moe, ssm
+    out = {}
+    calls = {"flash": 0, "parts": 0, "columns": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    saved = (attention._flash_local, moe._moe_on_parts, ssm._columns_apart)
+    attention._flash_local = counted("flash", saved[0])
+    moe._moe_on_parts = counted("parts", saved[1])
+    ssm._columns_apart = counted("columns", saved[2])
+    try:
+        cfg = cfg_of("glm4-9b", CONTEXT)
+        run = RunConfig(model=cfg, mode="prefill", seq_len=32,
+                        global_batch=8, fsdp=True)
+        tokens = SyntheticLM(cfg, run, seed=5, device="cpu").batch(0)[
+            "tokens"]
+        out["cp_prefill"] = _serve(cfg, run, state_from(
+            inputs, "context").params, mesh, tokens, steps=0)
+        out["cp_prefill"].update(flash_calls=calls["flash"],
+                                 layers=cfg.n_layers)
+
+        cfg = cfg_of("phi3.5-moe-42b-a6.6b", dict(MOE, capacity_factor=1.0))
+        run = RunConfig(model=cfg, mode="decode", seq_len=24,
+                        global_batch=8, fsdp=True)
+        params = state_from(inputs, "moe").params
+        policy = pt.make_policy(mesh, cfg, run)
+        x = torch.randn((8, 1, cfg.d_model),
+                        generator=torch.Generator().manual_seed(6))
+        ffn = {k: v[0] for k, v in params["blocks"]["b0"]["ffn"].items()}
+        with torch.no_grad():
+            with api.policy_scope(api.ShardingPolicy(None, {},
+                                                     dict(policy.meta))):
+                want, want_aux = moe.moe_ffn(ffn, x, cfg)
+                dropped = moe.dropped_slots(x, ffn, cfg)
+            with api.policy_scope(policy):
+                placed = pt.distribute(params, pt.make_param_shardings(
+                    params, mesh, run.fsdp))
+                got, got_aux = moe.moe_ffn(
+                    tr._index(placed["blocks"], 0)["b0"]["ffn"],
+                    pt.distribute(x, pt.batch_sharding(mesh, cfg, run)), cfg)
+        tokens = SyntheticLM(cfg, run, seed=7, device="cpu").batch(0)[
+            "tokens"][:, :1]
+        out["moe_decode"] = dict(
+            _serve(cfg, run, params, mesh, tokens), ffn_err=_rel(got, want),
+            aux_err=abs(float(api.whole(got_aux)) - float(want_aux)),
+            aux=float(want_aux), dropped=dropped, parts_calls=calls["parts"])
+
+        cfg = dataclasses.replace(small("mamba2-130m"), d_model=48,
+                                  ssm_head_dim=32)
+        run = RunConfig(model=cfg, mode="decode", seq_len=16,
+                        global_batch=8, fsdp=True)
+        params = tr.init_params(torch.Generator().manual_seed(8), cfg)
+        tokens = SyntheticLM(cfg, run, seed=9, device="cpu").batch(0)[
+            "tokens"][:, :8]
+        out["ssd_decode"] = dict(_serve(cfg, run, params, mesh, tokens),
+                                 columns_calls=calls["columns"])
+
+        cfg = small("recurrentgemma-2b")
+        run = RunConfig(model=cfg, mode="prefill", seq_len=16,
+                        global_batch=8, fsdp=True)
+        params = tr.init_params(torch.Generator().manual_seed(10), cfg)
+        tokens = SyntheticLM(cfg, run, seed=11, device="cpu").batch(0)[
+            "tokens"]
+        out["rglru_prefill"] = _serve(cfg, run, params, mesh, tokens)
+    finally:
+        attention._flash_local, moe._moe_on_parts, ssm._columns_apart = \
+            saved
+    return out
+
+
 def check_elastic(inputs):
     cfg = cfg_of("glm4-9b", DENSE)
     state = state_from(inputs, "dense")
@@ -510,7 +626,8 @@ def main():
                                    ("moe", check_moe),
                                   ("train_moe", check_train_moe),
                                    ("decode", check_decode),
-                                   ("families", check_families))}
+                                   ("families", check_families),
+                                   ("serving", check_serving))}
     elif WORLD == "elastic":
         checks = {"elastic": lambda: check_elastic(inputs),
                   "psum": lambda: check_psum(inputs),

@@ -460,6 +460,31 @@ def test_other_families_under_the_policy(lm_world, arch):
     assert lm_world.check("families")[arch] <= 1e-5
 
 
+@pytest.mark.parametrize("path", ["cp_prefill", "moe_decode", "ssd_decode",
+                                  "rglru_prefill"])
+def test_repaired_serving_paths_equal_the_unsharded_calls(lm_world, path):
+    """The serving paths repaired for the production mesh, on the (4, 2)
+    mesh against the unsharded model (the same dispatch groups): logits
+    of a prefill and two greedy decode steps, and the caches, within
+    1e-5 of their max.  The context-parallel prefill (three heads) takes
+    the chunked route with the queries split; the MoE decode routes one
+    group over four "data" ranks with slots dropped at capacity - the
+    same drops, or a token's output would differ by its expert's - and
+    its auxiliary loss; the SSD decode shares the in-projection's 227
+    features and the channels over "model"."""
+    out = lm_world.check("serving")[path]
+    assert out["err"] <= 1e-5, out
+    assert out["cache_err"] <= 1e-5, out
+    if path == "cp_prefill":
+        assert out["flash_calls"] == out["layers"], out  # unsharded only
+    if path == "moe_decode":
+        assert out["dropped"] > 0 and out["parts_calls"] > 0, out
+        assert out["ffn_err"] <= 1e-5, out
+        assert out["aux_err"] <= 1e-6 * out["aux"], out
+    if path == "ssd_decode":
+        assert out["columns_calls"] > 0, out
+
+
 def test_elastic_remesh_restore(elastic_world):
     """The reference's `test_elastic_remesh_restore`: a state saved
     sharded on (2, 2) restores onto `ElasticMesh.make_mesh`'s (1, 4),

@@ -310,3 +310,86 @@ def test_four_gloo_ranks_equal_the_unsharded_calls(tmp_path):
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, err[-4000:]
         assert f"OK {r}" in out
+
+
+SOLVER_RANKS = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
+from repro_torch.core import distributed as tdist
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.nonideal import NonidealConfig
+
+rank = int(os.environ["RANK"])
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[1], 4),
+                        rank=rank, world_size=4)
+x = np.random.default_rng(11).normal(size=(4 * 96, 96))
+a = torch.from_numpy((x.T @ x / (4 * 96)).astype(np.float32))
+b = torch.from_numpy(np.random.default_rng(12).uniform(-1, 1, 96)
+                     .astype(np.float32))
+cfg = AnalogConfig(array_size=8, nonideal=NonidealConfig(sigma=0.05))
+# (2, 2): every quadrant splits evenly, 3x3 tile grids do not; (4, 1): the
+# Schur recursion gathers blocks whose halves do not split over 4 rows
+for shape in ((2, 2), (4, 1)):
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    a_split = DTensor.from_local(
+        a[mesh.get_local_rank("data") * 96 // shape[0]:][:96 // shape[0],
+          mesh.get_local_rank("model") * 96 // shape[1]:][:, :96 // shape[1]],
+        mesh, [Shard(0), Shard(1)], run_check=False)
+    assert a_split.to_local().numel() * 4 == a.numel()
+    plan = tdist.build_dist_plan(a_split, torch.Generator().manual_seed(3),
+                                 cfg, 2, device="cpu", mesh=mesh)
+    one = tdist.build_dist_plan(a, torch.Generator().manual_seed(3), cfg, 2,
+                                device="cpu")
+    rows = lambda n: tdist._part(n, mesh, "data")
+    cols = lambda n: tdist._part(n, mesh, "model")
+    for got, want, exact in ((plan.mvm2[0], one.mvm2[0], True),
+                             (plan.mvm3[0], one.mvm3[0], True),
+                             (plan.mvm2[1], one.mvm2[1], False),
+                             (plan.leaves, one.leaves, False)):
+        rt, ct = want.shape[1:3]
+        for g, w in ((got.gpos, want.gpos), (got.gneg, want.gneg)):
+            w = w[:, rows(rt), cols(ct)]
+            assert g.shape == w.shape, (g.shape, w.shape)
+            if exact:       # A's own blocks: the same targets, same draws
+                assert torch.equal(g, w)
+            elif w.numel():     # the Schur products reassociated
+                assert float((g - w).abs().max()) <= 1e-5 * float(
+                    w.abs().max())
+    want = tdist.dist_execute(one, b, cfg)
+    got = tdist.dist_execute(plan, b, cfg)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    got = tdist.solve_distributed(a_split, b, torch.Generator().manual_seed(
+        3), cfg, 2, mesh=mesh, device="cpu")
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+dist.destroy_process_group()
+print("OK", rank)
+"""
+
+
+def test_sharded_tile_solver_holds_a_quarter_of_a_on_each_rank(tmp_path):
+    """Four gloo ranks: A split over a ("data", "model") mesh (a quarter on
+    each rank) builds a plan whose tiles are the rank's own tiles of the
+    unsharded plan drawn from the same generator - level 0's blocks of A
+    bit for bit, the Schur complements' to 1e-5 - and solves to the
+    unsharded x within 1e-6 of max|x|, on a 2x2 and a 4x1 mesh."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", SOLVER_RANKS, store],
+                              env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-4000:]
+        assert f"OK {r}" in out
