@@ -4,7 +4,9 @@
 1. Conductance variation: each programmed conductance deviates from its
    target by additive Gaussian noise (sigma = 0.05 * G0 in the paper).
 2. Interconnect (wire) resistance: the first-order effective-conductance
-   model (O(n^2), used at all sizes).
+   model (O(n^2), used at all sizes), and the exact dense MNA solvers in
+   float64 (`mna_mvm_currents`, `mna_inv_outputs`: O(n^6), small n), the
+   ground truth the nodal solver and the first-order model are held to.
 
 Geometry convention: the input drive enters at row 0 of each bit-line,
 the sensing amplifier sits past the last column of each word-line.
@@ -26,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -70,6 +73,118 @@ def effective_conductance(g: torch.Tensor, r_seg) -> torch.Tensor:
     c_bl, s_wl = _segment_kernels(g.shape[-2], g.shape[-1], g)
     drop = g * (c_bl @ g) + g * (g @ s_wl)
     return g - r_seg * drop
+
+
+# ---------------------------------------------------------------------------
+# Exact MNA crossbar solvers (validation oracles, small n; HSPICE stand-in)
+# ---------------------------------------------------------------------------
+#
+# Node layout for an (nr x nc) crossbar with wire segments:
+#   BL node b(i,j): on bit-line (column) j at row i       -> index i*nc + j
+#   WL node w(i,j): on word-line (row) i at column j      -> index nr*nc + i*nc + j
+# Cell (i,j) connects b(i,j) <-> w(i,j) with conductance g[i,j].
+# BL segments connect b(i-1,j) <-> b(i,j); the driver feeds b(0,j) through
+# one segment.  WL segments connect w(i,j) <-> w(i,j+1); the sense node is
+# one segment past w(i, nc-1) and is held at virtual ground.
+#
+# Everything is float64 whatever the input's dtype.  A tensor `g` keeps
+# its device (the card's dense solve); anything else goes to the host.
+# The stamps are the reference's, in its order, with `index_put_(...,
+# accumulate=True)` for `np.add.at`: within one stamp every index is
+# distinct, so on the host L, drive and sense equal the reference's bit
+# for bit.  The solve is `torch.linalg.solve`, the oracle's own
+# definition.
+
+def _f64(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float64)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+
+
+def _crossbar_laplacian(g, r_seg: float):
+    """The (2*nr*nc) x (2*nr*nc) conductance Laplacian plus the
+    driver (2*nr*nc, nc) and sense (2*nr*nc, nr) coupling matrices,
+    dense float64 on g's device (validation oracle only)."""
+    dev = g.device if isinstance(g, torch.Tensor) else torch.device("cpu")
+    g = _f64(g, dev)
+    nr, nc = g.shape
+    n_nodes = 2 * nr * nc
+    gw = 1.0 / r_seg
+
+    bl = (torch.arange(nr, device=dev)[:, None] * nc
+          + torch.arange(nc, device=dev)[None, :])
+    wl = nr * nc + bl
+
+    L = torch.zeros((n_nodes, n_nodes), dtype=torch.float64, device=dev)
+
+    def stamp(a_idx, b_idx, cond):
+        cond = torch.as_tensor(cond, dtype=torch.float64, device=dev)
+        cond = cond.expand(a_idx.shape).reshape(-1)
+        a_idx, b_idx = a_idx.reshape(-1), b_idx.reshape(-1)
+        L.index_put_((a_idx, a_idx), cond, accumulate=True)
+        L.index_put_((b_idx, b_idx), cond, accumulate=True)
+        L.index_put_((a_idx, b_idx), -cond, accumulate=True)
+        L.index_put_((b_idx, a_idx), -cond, accumulate=True)
+
+    stamp(bl, wl, g)                         # cells
+    stamp(bl[:-1, :], bl[1:, :], gw)         # BL wire segments (vertical)
+    stamp(wl[:, :-1], wl[:, 1:], gw)         # WL wire segments (horizontal)
+    # Driver coupling: v_in[j] -> b(0,j) through one BL segment.
+    cols = torch.arange(nc, device=dev)
+    drive = torch.zeros((n_nodes, nc), dtype=torch.float64, device=dev)
+    L.index_put_((bl[0, :], bl[0, :]),
+                 torch.full((nc,), gw, dtype=torch.float64, device=dev),
+                 accumulate=True)
+    drive[bl[0, :], cols] = gw
+    # Sense coupling: w(i, nc-1) -> virtual ground through one WL segment.
+    rows = torch.arange(nr, device=dev)
+    sense = torch.zeros((n_nodes, nr), dtype=torch.float64, device=dev)
+    L.index_put_((wl[:, -1], wl[:, -1]),
+                 torch.full((nr,), gw, dtype=torch.float64, device=dev),
+                 accumulate=True)
+    sense[wl[:, -1], rows] = gw
+    return L, drive, sense
+
+
+def mna_mvm_currents(g, v_in, r_seg: float) -> torch.Tensor:
+    """Exact sense currents of the MVM crossbar (TIA inputs at 0 V), a
+    float64 tensor on g's device: I[i], the current into the virtual
+    ground of row i, for v_in (nc,) or (nc, k).  Ideal limit
+    (r_seg -> 0): I = g @ v_in."""
+    L, drive, sense = _crossbar_laplacian(g, r_seg)
+    v_in = _f64(v_in, L.device)
+    # KCL at all internal nodes: L v = drive @ v_in   (sense nodes at 0 V are
+    # already folded into L's diagonal via the sense coupling).
+    v = torch.linalg.solve(L, drive @ v_in)
+    # Current into each virtual ground = gw * v(w(i, nc-1)).
+    return sense.T @ v
+
+
+def mna_inv_outputs(g, v_in, r_seg: float, g0: float) -> torch.Tensor:
+    """Exact OPA output voltages of the INV circuit with wire resistance,
+    a float64 tensor on g's device.
+
+    Circuit (paper Fig. 1b): v_in[i] injected through a G0 resistor into
+    word line i's summing node; OPA i senses that node (ideal virtual
+    ground) and drives bit line i, so that G0 v_in + G_eff v_out = 0.
+    Unknowns: the internal node voltages v (2*nr*nc) and the OPA outputs
+    u (nc).  Equations: KCL at every internal node, L v - drive @ u = 0,
+    and a summing node at 0 V drawing no input current a row,
+    (sense.T @ v)[i] + g0 * v_in[i] = 0.
+    """
+    nr, nc = g.shape
+    assert nr == nc, "INV circuit requires a square array"
+    L, drive, sense = _crossbar_laplacian(g, r_seg)
+    v_in = _f64(v_in, L.device)
+    n_nodes = 2 * nr * nc
+    top = torch.cat([L, -drive], dim=1)
+    bot = torch.cat([sense.T, torch.zeros((nr, nc), dtype=torch.float64,
+                                          device=L.device)], dim=1)
+    M = torch.cat([top, bot], dim=0)
+    rhs = torch.cat([torch.zeros((n_nodes,), dtype=torch.float64,
+                                 device=L.device), -g0 * v_in])
+    sol = torch.linalg.solve(M, rhs)
+    return sol[n_nodes:]
 
 
 def compensate_conductances(g_target: torch.Tensor, r_seg: float,

@@ -64,3 +64,6 @@ def random_rhs(generator: torch.Generator, n: int, *, dtype=torch.float32,
     u = torch.rand((n,), generator=generator, dtype=dtype,
                    device=generator.device)
     return (2.0 * u - 1.0).to(resolve_device(device))
+
+
+MATRIX_FAMILIES = {"wishart": wishart, "toeplitz": toeplitz}

@@ -326,6 +326,7 @@ def _trace(step, args, with_grad: bool):
               "generated_code_bytes": None}
     result = acc.result()
     result["calls"] = dict(acc.calls)
+    result["peak_live"] = acc.peak_live()
     return result, float(raw.get_total_flops()), memory, seconds
 
 
@@ -404,10 +405,12 @@ def lower_cell(arch: str, shape_key: str, *, multi_pod: bool = False,
         "collective_bytes_per_chip": coll_bytes,
         "collectives": acc["collectives"],
         "bytes_by_op": acc["by_op"],
+        "flops_by_op": acc["flops_by_op"],
         "top_instrs": acc["top_instrs"],
         "raw_cost_analysis": {"flops": raw_flops, "bytes": -1.0},
         "hlo_warnings": acc["warnings"][:5],
         "memory": memory,
+        "peak_live": acc["peak_live"],
         "roofline": terms,
         "dominant": dominant,
         "model_flops_global": model_flops,
@@ -525,6 +528,7 @@ def lower_solver_cell(*, n: int = 16384, stages: int = 2,
             "useful_flop_ratio": (model_flops / n_chips) / max(acc["flops"],
                                                                1),
             "bytes_by_op": acc["by_op"],
+        "flops_by_op": acc["flops_by_op"],
             "top_instrs": acc["top_instrs"],
             "differences": [_COLLECTIVES_DIFFER]}
 

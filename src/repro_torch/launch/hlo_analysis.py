@@ -39,11 +39,17 @@ counts to infer.
 
 Memory.  The mode also tracks the storages its ops create while they live
 (a fake tensor's storage allocates nothing, but has its size): `peak_bytes`
-is the most live at once beyond the arguments registered with `hold`.
+is the most live at once beyond the arguments registered with `hold`, and
+`peak_live` the largest of the storages live at that moment (`PEAK_LIVE`
+of them), each with its bytes, the dtype and shape of the tensor that
+created it and the op that did - the breakdown of a peak.  A
+collective's wait hands back the collective's own result: its result
+counts as that storage (a fake tensor's wait makes a second one).
 """
 from __future__ import annotations
 
 import contextlib
+import heapq
 import weakref
 from typing import Any, Dict, List
 
@@ -53,6 +59,8 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.sharding.api import is_dtensor_type, shape_propagation
+
+PEAK_LIVE = 8       # storages listed at the peak (`OpAnalysis.peak_live`)
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute", "ragged-all-to-all")
@@ -187,17 +195,22 @@ class OpAnalysis(TorchDispatchMode):
         self.flops = 0.0
         self.bytes = 0.0
         self.by_op: Dict[str, float] = {}
+        self.flops_by_op: Dict[str, float] = {}
         self.calls: Dict[str, int] = {}
         self.coll = {c: {"count": 0.0, "bytes": 0.0} for c in COLLECTIVES}
         self.warnings: List[str] = []
         self._instrs: Dict[tuple, list] = {}
         self._shadow = 0
         self._hooks: list = []
-        # live storages: key -> [bytes, references]; the arguments' keys
+        # live storages: key -> [bytes, references, (dtype, shape, op),
+        # the keys aliased to it]; the keys of a wait's results, each
+        # aliased to its collective's; the arguments' keys
         self._live: Dict[int, list] = {}
+        self._alias: Dict[int, int] = {}
         self._held: set = set()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self._peak_live: List[list] = []
 
     # -- memory -----------------------------------------------------------
 
@@ -224,22 +237,54 @@ class OpAnalysis(TorchDispatchMode):
         if entry[1] <= 0:
             self.live_bytes -= entry[0]
             del self._live[key]
+            for alias in entry[3]:
+                self._alias.pop(alias, None)
 
-    def _track(self, out, inputs) -> None:
+    def _track(self, out, inputs, name: str) -> None:
         seen = {id(x) for x in inputs}
-        for t in tensors(out):
+        ts = tensors(out)
+        if name == _F + "wait_tensor" and ts and inputs:
+            # the wait hands back the collective's own result; a fake
+            # tensor's wait allocates a second storage, which would count
+            # every gathered tensor twice
+            own = self._key(inputs[0])
+            own = self._alias.get(own, own)
+            entry = self._live.get(own)
+            if entry is not None:
+                key = self._key(ts[0])
+                if key != own:
+                    self._alias[key] = own
+                    entry[3].append(key)
+                entry[1] += 1
+                weakref.finalize(ts[0], self._release, own)
+                return
+        for t in ts:
             if id(t) in seen:
                 continue
             key = self._key(t)
+            key = self._alias.get(key, key)
             if key in self._held:
                 continue
             entry = self._live.get(key)
             if entry is None:
-                entry = self._live[key] = [t.untyped_storage().nbytes(), 0]
+                entry = self._live[key] = [t.untyped_storage().nbytes(), 0,
+                                           (t.dtype, tuple(t.shape), name),
+                                           []]
                 self.live_bytes += entry[0]
-                self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+                if self.live_bytes > self.peak_bytes:
+                    self.peak_bytes = self.live_bytes
+                    self._peak_live = heapq.nlargest(
+                        PEAK_LIVE, self._live.values(), key=lambda e: e[0])
             entry[1] += 1
             weakref.finalize(t, self._release, key)
+
+    def peak_live(self) -> List[Dict[str, Any]]:
+        """The largest storages live at the peak, largest first: bytes,
+        the dtype and shape of the tensor that created each, and the op
+        that created it."""
+        return [{"bytes": e[0], "dtype": str(e[2][0]).replace("torch.", ""),
+                 "shape": list(e[2][1]), "op": e[2][2]}
+                for e in self._peak_live]
 
     # -- the trace --------------------------------------------------------
 
@@ -277,7 +322,12 @@ class OpAnalysis(TorchDispatchMode):
         self.calls[name] = self.calls.get(name, 0) + 1
         formula = flop_registry.get(packet)
         if formula is not None:
-            self.flops += float(formula(*args, **kwargs, out_val=out))
+            flops = float(formula(*args, **kwargs, out_val=out))
+            self.flops += flops
+            if flops:
+                what = f"{name} {_type_str(out)}"
+                self.flops_by_op[what] = self.flops_by_op.get(what, 0.0) + \
+                    flops
         elif func.namespace not in ("aten", "prim", "c10d",
                                     "_c10d_functional", "_dtensor"):
             msg = f"{name}: no FLOP formula, counted as 0"
@@ -305,7 +355,7 @@ class OpAnalysis(TorchDispatchMode):
                                                [0.0, 0])
                 slot[0] += moved
                 slot[1] += 1
-        self._track(out, inputs)
+        self._track(out, inputs, name)
 
     def __enter__(self):
         hook = shape_propagation(self.shadow)
@@ -321,7 +371,8 @@ class OpAnalysis(TorchDispatchMode):
 
     def result(self) -> Dict[str, Any]:
         """The reference's keys: flops, bytes, by_op, top_instrs,
-        collectives, collective_bytes, warnings."""
+        collectives, collective_bytes, warnings; and flops_by_op, the
+        FLOPs of each op and result type, the largest 16."""
         top = sorted(self._instrs.items(), key=lambda kv: -kv[1][0])[:16]
         return {
             "flops": self.flops, "bytes": self.bytes,
@@ -334,17 +385,21 @@ class OpAnalysis(TorchDispatchMode):
             "collectives": {c: dict(v) for c, v in self.coll.items()},
             "collective_bytes": sum(v["bytes"] for v in self.coll.values()),
             "warnings": list(self.warnings),
+            "flops_by_op": dict(sorted(self.flops_by_op.items(),
+                                       key=lambda kv: -kv[1])[:16]),
         }
 
 
 def analyze(fn, *args, **kwargs) -> Dict[str, Any]:
     """Run fn(*args, **kwargs) inside an `OpAnalysis` and return its
     result (`OpAnalysis.result`), with `peak_bytes`: the most bytes live
-    at once beyond the arguments."""
+    at once beyond the arguments, and `peak_live`: the largest storages
+    live then."""
     acc = OpAnalysis()
     acc.hold((args, kwargs))
     with acc:
         fn(*args, **kwargs)
     out = acc.result()
     out["peak_bytes"] = acc.peak_bytes
+    out["peak_live"] = acc.peak_live()
     return out

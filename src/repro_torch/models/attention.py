@@ -72,12 +72,16 @@ torch releases, and the local form is what a sharded kernel needs:
   kernel there, with q whole on every rank.
   Projections whose features the heads do not split evenly are gathered
   before the heads are split (`_heads`);
-- prefill lays its cache out by "act_cache", the layout decode keeps it
-  in; decode writes a DTensor cache in place shard by shard
+- the sharded chunked route takes a query chunk whose float32 scores
+  stay within SCORE_BYTES (outside autograd);
+- prefill builds its cache on each rank's block of "act_cache", the
+  layout decode keeps it in (`_cache_local`: no rank holds k, v or the
+  cache whole); decode writes a DTensor cache in place shard by shard
   (`_put_local`: each rank writes the rows and slots it holds; DTensor
   refuses an in-place index write into a sharded tensor), and attends
   on local shards (`_decode_attend`), combining the softmax across the
-  ranks that split the sequence as flash-decoding does.
+  ranks that split the sequence as flash-decoding does, the ranks that
+  hold the same rows and slots sharing out p . v's heads.
 
 Masks, positions and constants stay plain tensors, which the policy's
 scope treats as replicated.
@@ -94,6 +98,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
@@ -101,10 +106,16 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import einsum, init_dense, mm, rope
-from repro_torch.sharding.api import (is_dtensor, lay_out, local_box,
-                                      on_local, seq_whole, shard, whole)
+from repro_torch.sharding.api import (box, ceil_share, current_policy,
+                                      is_dtensor, lay_out, local_box,
+                                      on_local, rank_among, replicated,
+                                      rule_placements, seq_whole, shard,
+                                      whole)
 
 NEG_INF = -2.0 ** 30
+# A chunk's float32 scores at most this many bytes on a sharded prefill
+# (`_scores_chunk`): the queries' chunk the chunked route takes there.
+SCORE_BYTES = 1 << 29
 
 
 def _mask(scores: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -181,6 +192,18 @@ def _chunked_attend(q, k, v, positions, window: Optional[int],
     return torch.cat(outs, dim=1)
 
 
+def _scores_chunk(q_chunk: int, b: int, sq: int, h: int, sk: int) -> int:
+    """The query chunk of a sharded prefill's chunked route: q_chunk
+    (clipped to the sq local queries) halved while a chunk's float32
+    scores (b, h, chunk, sk) exceed SCORE_BYTES and the half still
+    divides sq.  Each query's softmax is its own, so the chunk changes
+    what is live at once, not the result."""
+    c = min(q_chunk, sq)
+    while b * h * c * sk * 4 > SCORE_BYTES and c % 2 == 0 and c > 1:
+        c //= 2
+    return c
+
+
 def _flash_route(use_flash: Optional[bool], window: Optional[int],
                  head_dim: int, dtype: torch.dtype, on_card: bool,
                  grad: bool = False) -> bool:
@@ -232,7 +255,11 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
     def core(q, k, v, positions, q_positions):
         if flash:
             return _flash_local(q, k, v)
-        return _chunked_attend(q, k, v, positions, window, q_chunk,
+        chunk = q_chunk
+        if q_positions is not None and not _records_grad(q, k, v):
+            chunk = _scores_chunk(q_chunk, q.shape[0], q.shape[1],
+                                  q.shape[2], k.shape[1])
+        return _chunked_attend(q, k, v, positions, window, chunk,
                                q_positions)
 
     if is_dtensor(q):           # batch rows and heads split, as q's
@@ -303,21 +330,89 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     out = _attend(q, k, v, positions, cfg, flash, window, q_chunk,
                   keep_flash=use_flash is True)
 
-    k, v = whole(k), whole(v)
-    shape = (b, cache_len) + tuple(k.shape[2:])
-    cache_k = torch.zeros(shape, dtype=cache_dtype, device=x.device)
-    cache_v = torch.zeros_like(cache_k)
-    if window is not None:
-        w_eff = min(window, s)
-        slots = torch.arange(s - w_eff, s, device=x.device) % cache_len
-        cache_k[:, slots] = k[:, -w_eff:].to(cache_dtype)
-        cache_v[:, slots] = v[:, -w_eff:].to(cache_dtype)
+    target = rule_placements("act_cache", (b, cache_len) + tuple(k.shape[2:]))
+    if target is None:
+        k, v = whole(k), whole(v)
+        shape = (b, cache_len) + tuple(k.shape[2:])
+        cache_k = torch.zeros(shape, dtype=cache_dtype, device=x.device)
+        cache_v = torch.zeros_like(cache_k)
+        if window is not None:
+            w_eff = min(window, s)
+            slots = torch.arange(s - w_eff, s, device=x.device) % cache_len
+            cache_k[:, slots] = k[:, -w_eff:].to(cache_dtype)
+            cache_v[:, slots] = v[:, -w_eff:].to(cache_dtype)
+        else:
+            cache_k[:, :s] = k.to(cache_dtype)
+            cache_v[:, :s] = v.to(cache_dtype)
     else:
-        cache_k[:, :s] = k.to(cache_dtype)
-        cache_v[:, :s] = v.to(cache_dtype)
+        cache_k, cache_v = (_cache_local(t, cache_len, window, cache_dtype,
+                                         target) for t in (k, v))
     cache = {"k": shard(cache_k, "act_cache"),
              "v": shard(cache_v, "act_cache")}
     return mm(out, params["wo"]), cache
+
+
+def _cache_arcs(s: int, cache_len: int, window: Optional[int]):
+    """The cache slots a prefill of s positions writes, as arcs
+    (first slot, end slot, first position): [0, s) for a full cache; the
+    ring slots pos % cache_len of the last min(window, s, cache_len)
+    positions for a windowed one (where more positions than slots map
+    to one slot, the last write is the one kept)."""
+    if window is None:
+        return [(0, s, 0)]
+    m = min(window, s, cache_len)
+    start = (s - m) % cache_len
+    arcs = [(start, min(start + m, cache_len), s - m)]
+    if start + m > cache_len:
+        arcs.append((0, start + m - cache_len, s - m + cache_len - start))
+    return arcs
+
+
+def _cache_local(t: torch.Tensor, cache_len: int, window: Optional[int],
+                 cache_dtype, target) -> torch.Tensor:
+    """The (B, cache_len, KV, hd) cache of keys or values t (B, S, KV,
+    hd), laid out by `target` ("act_cache"'s placements), built on each
+    rank's own block: t is laid out with its batch as the cache's and
+    its sequence whole (a split of its heads, or of its batch over a
+    mesh dim that splits the cache's slots, stays), each rank fills the
+    slots it will hold - or, where t's heads are split over the dim that
+    splits the slots, its heads' share of every slot - from its local
+    rows, and the block is laid out by `target` (an all-to-all of a
+    rank's share where heads become slots).  No rank holds t or the
+    cache whole."""
+    mesh = current_policy().mesh
+    if not is_dtensor(t):
+        t = replicated(t, mesh)
+    mid = []
+    for p, q in zip(t.placements, target):
+        if p.is_partial() or p.is_shard(1):
+            mid.append(Replicate())
+        elif q.is_shard(0):
+            mid.append(q)
+        else:
+            mid.append(p)
+    t = lay_out(t, mesh, mid)
+    pre = [q if p.is_replicate() and q.is_shard(1) else p
+           for p, q in zip(mid, target)]
+    b, s = t.shape[0], t.shape[1]
+    size, off = box((b, cache_len) + tuple(t.shape[2:]), mesh, pre)
+    first, n = off[1], size[1]
+    parts = []
+    for c0, c1, p0 in _cache_arcs(s, cache_len, window):
+        lo, hi = max(c0, first), min(c1, first + n)
+        if lo < hi:
+            parts.append((lo - first, hi - first, p0 + lo - c0))
+
+    def build(tl):
+        shape = (tl.shape[0], n) + tuple(tl.shape[2:])
+        covered = sum(hi - lo for lo, hi, _ in parts) == n
+        out = (tl.new_empty if covered else tl.new_zeros)(shape,
+                                                          dtype=cache_dtype)
+        for lo, hi, p in parts:
+            out[:, lo:hi] = tl[:, p:p + hi - lo]
+        return out
+    return lay_out(on_local(build, t, split=range(t.dim()), place=pre),
+                   mesh, target)
 
 
 # ---------------------------------------------------------------------------
@@ -395,20 +490,36 @@ def _decode_attend(q, k, v, slot_b, pos_b, cfg: ModelConfig,
     groups = tuple(mesh.get_group(j) for j, p in enumerate(place)
                    if p.is_shard(1) and mesh.size(j) > 1)
     cache_len = k.shape[1]
+    # the ranks that hold the same rows and slots share out p . v's heads
+    over = [j for j, p in enumerate(place)
+            if p.is_replicate() and mesh.size(j) > 1]
+    r, m = rank_among(mesh, over)
+    heads = ceil_share(cfg.n_heads, r, m) if m > 1 else None
+    out_place = [Shard(2) if j in over else p
+                 for j, p in enumerate(rows_place)]
 
     def core(k, v, q):
         return _decode_core(q, k, v, whole(slot_b)[rows], whole(pos_b)[rows],
-                            cfg, window, dtype, off[1], cache_len, groups)
-    return on_local(core, k, v, lay_out(q, mesh, rows_place), split=(0, 1),
-                    place=rows_place)
+                            cfg, window, dtype, off[1], cache_len, groups,
+                            heads)
+    out = on_local(core, k, v, lay_out(q, mesh, rows_place), split=(0, 1),
+                   place=out_place)
+    if heads is None:
+        return out
+    out = lay_out(out, mesh, rows_place)
+    return on_local(lambda t: t[..., :cfg.n_heads * cfg.head_dim], out,
+                    split=(0,))
 
 
 def _decode_core(q, k, v, slot_b, pos_b, cfg: ModelConfig,
                  window: Optional[int], dtype, first: int, cache_len: int,
-                 groups) -> torch.Tensor:
+                 groups, heads=None) -> torch.Tensor:
     """Decode attention of plain tensors: k, v hold cache slots
     [first, first + k.shape[1]) of `cache_len`; `groups` are the process
-    groups the other slots lie over (none: the plain softmax)."""
+    groups the other slots lie over (none: the plain softmax).  With
+    `heads` = (first head, end, width) the scores and their softmax are
+    every head's, p . v its heads' alone: (B, 1, width * hd), the heads
+    past `end` zero."""
     b, hd, g = q.shape[0], cfg.head_dim, cfg.q_per_kv
     q = q.reshape(b, 1, cfg.kv_heads, g, hd)
     scores = einsum("bqkgd,bskd->bkgqs", q, k) * (hd ** -0.5)
@@ -423,7 +534,7 @@ def _decode_core(q, k, v, slot_b, pos_b, cfg: ModelConfig,
     else:
         valid = slot_ids <= pos_b[:, None]
     scores = _mask(scores, valid[:, None, None, None, :])
-    if not groups:
+    if not groups and heads is None:
         w = torch.softmax(scores.to(torch.float32), dim=-1).to(dtype)
         return einsum("bkgqs,bskd->bqkgd", w, v).reshape(
             b, 1, cfg.n_heads * hd)
@@ -435,10 +546,20 @@ def _decode_core(q, k, v, slot_b, pos_b, cfg: ModelConfig,
     total = e.sum(dim=-1, keepdim=True)
     for group in groups:
         dist.all_reduce(total, group=group)
-    out = einsum("bkgqs,bskd->bqkgd", (e / total).to(dtype), v)
+    w = (e / total).to(dtype)
+    if heads is None:
+        out = einsum("bkgqs,bskd->bqkgd", w, v)
+    else:                   # query head h reads kv head h // G
+        h0, h1, width = heads
+        w = w.reshape(b, cfg.n_heads, -1)[:, h0:h1]
+        kv = torch.arange(h0, h1, device=v.device) // g
+        out = einsum("bhs,bshd->bhd", w, v.index_select(2, kv))
     for group in groups:
         dist.all_reduce(out, group=group)
-    return out.reshape(b, 1, cfg.n_heads * hd)
+    if heads is None:
+        return out.reshape(b, 1, cfg.n_heads * hd)
+    out = out.reshape(b, 1, (h1 - h0) * hd)
+    return F.pad(out, (0, (width - (h1 - h0)) * hd))
 
 
 def _put_local(c: torch.Tensor, at: torch.Tensor, val: torch.Tensor

@@ -45,11 +45,20 @@ def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
+    """The reference's float32 RMS norm.  Where autograd records nothing
+    and the float32 copy is a fresh tensor, its two scalings run in place
+    on it (the same products in the same order), so the cast back meets
+    one float32 copy of the activations where the out-of-place form
+    holds two (XLA fuses them into none)."""
     dtype = x.dtype
-    x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + weight.to(torch.float32))).to(dtype)
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    scale = 1.0 + weight.to(torch.float32)
+    if x32 is not x and not (torch.is_grad_enabled()
+                             and (x.requires_grad or weight.requires_grad)):
+        return x32.mul_(torch.rsqrt(var + eps)).mul_(scale).to(dtype)
+    x32 = x32 * torch.rsqrt(var + eps)
+    return (x32 * scale).to(dtype)
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype
@@ -80,7 +89,12 @@ def swiglu_ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """Rotary embedding.  x: (..., S, H, D), positions: (..., S).  The
-    angles are float32; the rotation computes in float32 and casts back."""
+    angles are float32; the rotation computes in float32 and casts back.
+    Positions broadcast along a leading dim (a prefill's arange expanded
+    over the batch) give their angles once there, not once a row."""
+    for dim in range(positions.dim() - 1):
+        if positions.stride(dim) == 0:
+            positions = positions.narrow(dim, 0, 1)
     d = x.shape[-1]
     half = d // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,

@@ -52,8 +52,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (einsum, init_dense, mm, swiglu_ffn,
                                        swiglu_ffn_init)
-from repro_torch.sharding.api import (get_meta, is_dtensor, lay_out,
-                                      local_box, on_local, replicated,
+from repro_torch.sharding.api import (ceil_share, get_meta, is_dtensor,
+                                      lay_out, local_box, on_local,
+                                      rank_among, replicated,
                                       rule_placements, seq_whole, shard,
                                       whole)
 
@@ -243,8 +244,7 @@ def _moe_on_rows(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
     whole_place = [Replicate()] * mesh.ndim
     share = [Partial() if j in rows else Replicate()
              for j in range(mesh.ndim)]
-    probs = on_local(lambda xl, r: _probs(r, xl.reshape(tl, d)), x,
-                     replicated(params["router"]), split=(0,), place=split)
+    probs = _route_probs(params["router"], x, rows, tl, split)
     with torch.no_grad():           # the slots: integer bookkeeping
         gate_i = torch.sort(probs.to_local(), dim=-1, descending=True,
                             stable=True)[1][:, :k]
@@ -268,6 +268,35 @@ def _moe_on_rows(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
         return _combine(yl, ew, order, keep, dest, st, tl).reshape(
             b // g, s, d)
     return on_local(combine, y, probs, split=(0,), place=split), aux
+
+
+def _route_probs(router: torch.Tensor, x: torch.Tensor, rows, tl: int,
+                 split) -> torch.Tensor:
+    """The router's probabilities (g * tl, E) float32 of x's tokens, laid
+    out `split` (each rank its dispatch group's tl).  While autograd
+    records, the ranks of the mesh dims that do not split the rows -
+    every one of them routes the same tokens - each multiply a share of
+    the tokens (tl / m) and the probabilities are gathered, so that the
+    product and its gradients are not repeated on each (the reference's
+    partitioner splits a differentiated router's tokens so:
+    llama4-maverick's 4096 a group, 256 a rank); outside autograd, or
+    where the m ranks do not divide tl, each multiplies all tl, as the
+    reference's prefill does."""
+    mesh, d = x.device_mesh, x.shape[-1]
+    over = [j for j in range(mesh.ndim)
+            if j not in rows and mesh.size(j) > 1]
+    r, ways = rank_among(mesh, over)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or router.requires_grad)
+    if not (grad and over) or tl % ways:
+        return on_local(lambda xl, w: _probs(w, xl.reshape(tl, d)), x,
+                        replicated(router), split=(0,), place=split)
+    lo, hi = r * tl // ways, (r + 1) * tl // ways
+    probs = on_local(lambda xl, w: _probs(w, xl.reshape(tl, d)[lo:hi]), x,
+                     replicated(router), split=(0,),
+                     place=[Shard(0) if j in over else p
+                            for j, p in enumerate(split)])
+    return lay_out(probs, mesh, split)
 
 
 def _moe_on_parts(params: Dict, x: torch.Tensor, cfg: ModelConfig, rows,
@@ -348,11 +377,7 @@ def _expert_items(params: Dict, buf: DTensor, rows) -> torch.Tensor:
     local = buf.to_local()
     e_loc = local.shape[1]
     n_items = g * e_loc * cap
-    coord, ways, r = mesh.get_coordinate(), 1, 0
-    for j in rows:
-        r, ways = r * mesh.size(j) + coord[j], ways * mesh.size(j)
-    width = -(-n_items // ways)
-    lo, hi = min(r * width, n_items), min((r + 1) * width, n_items)
+    lo, hi, width = ceil_share(n_items, *rank_among(mesh, rows))
     experts = [(i // cap) % e_loc for i in range(lo, hi)]
     items = local.reshape(n_items, 1, d)[lo:hi]
     stacks = [lay_out(params[name], mesh, [

@@ -33,8 +33,9 @@ from torch.distributed.tensor import Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, mm, rms_norm
-from repro_torch.sharding.api import (is_dtensor, lay_out, on_local,
-                                      replicated, whole)
+from repro_torch.sharding.api import (ceil_share, is_dtensor, lay_out,
+                                      on_local, rank_among, replicated,
+                                      whole)
 
 
 def _dims(cfg: ModelConfig):
@@ -80,36 +81,52 @@ def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     """Chunked SSD, full sequence.  x: (B, S, d) -> (B, S, d).  Under a
     mesh the SSD runs on each rank's batch rows, the in-projection's
     features gathered, and the ranks that share those rows share out the
-    heads (`_head_share`: ceil(H / m) a rank, where an even split over
-    the model axis need not exist: mamba2's 24 heads on 16); the
-    projections stay on DTensors."""
-    d_inner, h, _, _ = _dims(cfg)
+    H * P channels (`_head_share`: ceil(H P / m) a rank, mamba2's 1536
+    channels 96 a rank on 16, where its 24 heads split evenly over no
+    16-wide axis): the inter-chunk products on the rank's channels, the
+    intra-chunk one on the heads they touch, the heads' shared C B^T on
+    a share of the chunks (`_cb_shared`); the projections stay on
+    DTensors."""
+    d_inner, h, p, n = _dims(cfg)
     zxbcdt = mm(_rows_apart(x, params["in_proj"]), params["in_proj"])
     weights = [params[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip")]
     norm_w = params["norm_w"]
     if not is_dtensor(zxbcdt):
-        y, state, conv = _forward_core(zxbcdt, *weights, cfg, (0, h, h))
+        y, state, conv = _forward_core(zxbcdt, *weights, cfg,
+                                       (0, d_inner, d_inner))
         y = _gate(y, zxbcdt, norm_w, cfg, x.dtype)
     else:
         mesh = zxbcdt.device_mesh
         rows = [p if p.is_shard(0) else Replicate()
                 for p in zxbcdt.placements]
         zxbcdt = lay_out(zxbcdt, mesh, rows)
-        heads, by_head, by_state = _head_share(mesh, rows, h)
+        chans, by_chan, by_state = _head_share(mesh, rows, d_inner)
         y, state, conv = on_local(
-            functools.partial(_forward_core, heads=heads), zxbcdt,
+            functools.partial(_forward_core, chans=chans,
+                              cb=_cb_shared(mesh, rows)), zxbcdt,
             *(replicated(w, mesh) for w in weights), cfg, split=(0,),
-            place=(by_head, by_state, rows))
-        y = on_local(lambda t, zx, w: _gate(t[:, :, :h], zx, w, cfg,
+            place=(by_chan, by_state, rows))
+        y = on_local(lambda t: t.to(x.dtype), y, split=(0, 2))
+        y = on_local(lambda t, zx, w: _gate(t[..., :d_inner], zx, w, cfg,
                                             x.dtype),
                      lay_out(y, mesh, rows), zxbcdt, replicated(norm_w, mesh),
                      split=(0,), place=rows)
-        state = on_local(lambda t: t[:, :h], lay_out(state, mesh, rows),
-                         split=(0,))
+        state = lay_out(state, mesh, rows)
+    state = _heads_of(state, h, p)
     out = mm(y, params["out_proj"])
     if not return_cache:
         return out
     return out, {"state": state, "conv": conv}
+
+
+def _heads_of(state: torch.Tensor, h: int, p: int) -> torch.Tensor:
+    """A (B, >= H*P, N) state of channels as the (B, H, P, N) cache (a
+    DTensor's rows split alone, its channel padding cut)."""
+    def cut(t):
+        return t[:, :h * p].reshape(t.shape[0], h, p, t.shape[-1])
+    if not is_dtensor(state):
+        return cut(state)
+    return on_local(cut, state, split=(0,))
 
 
 def _rows_apart(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -131,53 +148,90 @@ def _rows_apart(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _head_share(mesh, rows, h: int):
-    """This rank's heads of h where the mesh dims that do not split the
-    rows (`rows`: placements) share them out: ceil(h / m) a rank over
-    those m ranks, the last ones short or empty.  ((first, end, width),
-    the placements of a (B, S, m * width, P) stack of every rank's padded
-    heads, and of a (B, m * width, P, N) one)."""
+    """This rank's share of h heads or channels where the mesh dims that
+    do not split the rows (`rows`: placements) share them out: ceil(h /
+    m) a rank over those m ranks, the last ones short or empty.
+    ((first, end, width), the placements of a (B, S, m * width) stack of
+    every rank's padded share, and of a (B, m * width, N) one)."""
     over = [j for j, p in enumerate(rows) if p.is_replicate()]
-    coord, m, r = mesh.get_coordinate(), 1, 0
-    for j in over:
-        r, m = r * mesh.size(j) + coord[j], m * mesh.size(j)
-    width = -(-h // m)
-    first = min(r * width, h)
-    return ((first, min(first + width, h), width),
+    return (ceil_share(h, *rank_among(mesh, over)),
             [Shard(2) if j in over else p for j, p in enumerate(rows)],
             [Shard(1) if j in over else p for j, p in enumerate(rows)])
 
 
+def _cb(cmat_c: torch.Tensor, bmat_c: torch.Tensor) -> torch.Tensor:
+    """C B^T within each chunk: (B, NC, ch, N) twice -> (B, NC, ch, ch),
+    the product every head shares (one B/C group)."""
+    return torch.einsum("bcin,bcjn->bcij", cmat_c, bmat_c)
+
+
+def _cb_shared(mesh, rows):
+    """`_cb` with its chunks shared out over the ranks that share the
+    channels (the mesh dims `rows` does not split: the ranks of
+    `_head_share`), each computing ceil(NC / m) chunks, gathered back in order
+    along the chunk axis (an all-gather a mesh dim, innermost first; its
+    backward reduce-scatters the gradient), where every such rank would
+    repeat the whole product.  The reference's partitioner splits it so.
+    A chunk count the m ranks do not divide is shared ceil(NC / m) a
+    rank, the last ranks short (padded) or empty."""
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single_autograd", None) or \
+        funcol.all_gather_tensor_autograd
+    over = [j for j, p in enumerate(rows)
+            if p.is_replicate() and mesh.size(j) > 1]
+    r, m = rank_among(mesh, over)
+
+    def cb(cmat_c, bmat_c):
+        nc = cmat_c.shape[1]
+        if m == 1:
+            return _cb(cmat_c, bmat_c)
+        lo, hi, k = ceil_share(nc, r, m)
+        part = _cb(cmat_c[:, lo:hi], bmat_c[:, lo:hi]).transpose(0, 1)
+        if hi - lo < k:
+            part = F.pad(part, (0, 0, 0, 0, 0, 0, 0, k - (hi - lo)))
+        for j in reversed(over):        # chunks first: gathered along dim 0
+            part = gather(part.contiguous(), 0, (mesh, j))
+        return part[:nc].transpose(0, 1)
+    return cb
+
+
 def _gate(y, zxbcdt, norm_w, cfg: ModelConfig, dtype):
-    """The gated RMSNorm of the SSD's y (B, S, H, P) float32 with z, the
+    """The gated RMSNorm of the SSD's y (B, S, d_inner) float32 with z, the
     in-projection's first d_inner features, in `dtype` (the out
-    projection follows)."""
-    b, s = y.shape[:2]
+    projection follows).  A sharded y comes cast to `dtype` before it is
+    gathered (the same values, half the bytes)."""
     d_inner = _dims(cfg)[0]
-    y = y.reshape(b, s, d_inner).to(dtype)
+    y = y.to(dtype)
     return rms_norm(y * F.silu(zxbcdt[..., :d_inner]), norm_w, cfg.norm_eps)
 
 
 def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
-                  cfg: ModelConfig, heads):
+                  cfg: ModelConfig, chans, cb=_cb):
     """The SSD of plain tensors from the in-projection (B, S, F), for
-    heads [first, end) of `heads` = (first, end, width): (y (B, S, width,
-    P) float32 with the skip term, the last state (B, width, P, N), the
-    conv history's tail), heads past `end` zero.  All heads (0, H, H) is
-    the reference's SSD op for op."""
+    channels [first, end) of the H * P (head-major) of `chans` = (first,
+    end, width): (y (B, S, width) float32 with the skip term, the last
+    state (B, width, N), the conv history's tail), channels past `end`
+    zero.  The intra-chunk product runs on the heads the channels touch
+    (its decay is a head's), the inter-chunk products and the state on
+    the channels alone.  All channels (0, H P, H P) is the reference's
+    SSD op for op.  `cb` computes the heads' shared C B^T (`_cb`, or its
+    chunks shared over ranks: `_cb_shared`)."""
     b, s, _ = zxbcdt.shape
     d_inner, h, p, n = _dims(cfg)
-    first, end, width = heads
+    first, end, width = chans
+    h0, h1 = first // p, -(-end // p)           # the heads touched
+    lo, hi = first - h0 * p, end - h0 * p       # their channels kept
     f32 = torch.float32
     _, xs, bc, dt = torch.split(zxbcdt, [d_inner, d_inner, 2 * n, h],
                                 dim=-1)
     conv_in = torch.cat([xs, bc], dim=-1)
     conv_out = _causal_conv(conv_in, conv_w)
     xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    xh = xs.reshape(b, s, h, p)[:, :, first:end]
-    h = end - first
-    dt = F.softplus(dt[..., first:end].to(f32)
-                    + dt_bias[first:end])                      # (B, S, H)
-    a = -torch.exp(a_log[first:end])                           # (H,)
+    xh = xs.reshape(b, s, h, p)[:, :, h0:h1]
+    h = h1 - h0
+    dt = F.softplus(dt[..., h0:h1].to(f32)
+                    + dt_bias[h0:h1])                          # (B, S, H)
+    a = -torch.exp(a_log[h0:h1])                               # (H,)
     la = dt * a                            # log decay per step, <= 0
     xbar = xh * dt[..., None].to(xh.dtype)
 
@@ -192,39 +246,43 @@ def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
     cum = torch.cumsum(la.reshape(b, nc, ch, h), dim=2)        # (B,NC,ch,H)
     total = cum[:, :, -1, :]                                   # (B,NC,H)
 
+    def kept(t):                # (..., H) a head -> (..., C) a channel
+        return t.repeat_interleave(p, dim=-1)[..., lo:hi]
+
     # ---- intra-chunk (quadratic / 'attention' mode) ----
     # L[i, j] = exp(cum_i - cum_j) for i >= j, masked before the exp
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,NC,i,j,H)
     mask = torch.ones((ch, ch), dtype=torch.bool,
                       device=zxbcdt.device).tril()
     decay = torch.exp(torch.where(mask[:, :, None], diff, -math.inf))
-    cb = torch.einsum("bcin,bcjn->bcij", cmat_c, bmat_c)      # (B,NC,i,j)
+    cb = cb(cmat_c, bmat_c)                                   # (B,NC,i,j)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay,
-                           xbar)
+                           xbar).reshape(b, nc, ch, h * p)[..., lo:hi]
 
-    # ---- inter-chunk states ----
+    # ---- inter-chunk states, a channel each ----
     # state_c = sum_j exp(total - cum_j) * B_j^T xbar_j
-    w_in = torch.exp(total[:, :, None, :] - cum)               # (B,NC,ch,H)
-    state_c = torch.einsum("bcjn,bcjhp->bchpn", bmat_c,
-                           xbar * w_in[..., None])             # (B,NC,H,P,N)
-    state = torch.zeros((b, h, p, n), dtype=f32, device=zxbcdt.device)
+    xbar = xbar.reshape(b, nc, ch, h * p)[..., lo:hi]
+    w_in = kept(torch.exp(total[:, :, None, :] - cum))         # (B,NC,ch,C)
+    state_c = torch.einsum("bcjn,bcjk->bckn", bmat_c,
+                           xbar * w_in)                        # (B,NC,C,N)
+    state = torch.zeros((b, hi - lo, n), dtype=f32, device=zxbcdt.device)
+    step = kept(torch.exp(total))                              # (B,NC,C)
     in_states = []
     for c in range(nc):
         in_states.append(state)                        # incoming state
-        state = state * torch.exp(total[:, c])[:, :, None, None] \
-            + state_c[:, c]
-    in_states = torch.stack(in_states, dim=1)                  # (B,NC,H,P,N)
+        state = state * step[:, c, :, None] + state_c[:, c]
+    in_states = torch.stack(in_states, dim=1)                  # (B,NC,C,N)
 
     # ---- inter-chunk contribution: C_i exp(cum_i) state_in ----
-    y_inter = torch.einsum("bcin,bchpn->bcihp", cmat_c, in_states) \
-        * torch.exp(cum)[..., None]
+    y_inter = torch.einsum("bcin,bckn->bcik", cmat_c, in_states) \
+        * kept(torch.exp(cum))
 
-    y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + d_skip[first:end, None] * xh.to(f32)
+    y = (y_intra + y_inter).reshape(b, s, hi - lo)
+    y = y + kept(d_skip[h0:h1]) * xh.reshape(b, s, h * p)[..., lo:hi].to(f32)
     conv = conv_in[:, -(cfg.conv_kernel - 1):, :]
-    if h < width:                   # a rank's short share of the heads
-        y = F.pad(y, (0, 0, 0, width - h))
-        state = F.pad(state, (0, 0, 0, 0, 0, width - h))
+    if hi - lo < width:             # a rank's short share of the channels
+        y = F.pad(y, (0, width - (hi - lo)))
+        state = F.pad(state, (0, 0, 0, width - (hi - lo)))
     return y, state, conv
 
 

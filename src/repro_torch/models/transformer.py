@@ -394,8 +394,10 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         mixed, cache = ssm_mod.ssm_forward(params["mix"], h, cfg,
                                            return_cache=True)
-    x, aux = _ffn(params, shard(x + shard(mixed, "act_btd"), "act_btd"),
-                  cfg, is_moe)
+    del h                       # dead: not held through the FFN
+    x = shard(x + shard(mixed, "act_btd"), "act_btd")
+    del mixed
+    x, aux = _ffn(params, x, cfg, is_moe)
     return shard(x, "act_btd"), cache, aux
 
 

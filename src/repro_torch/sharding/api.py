@@ -155,12 +155,17 @@ def whole(x: torch.Tensor) -> torch.Tensor:
 
 def local_box(x) -> tuple:
     """(shape, offset) of this rank's shard of the DTensor `x`: the block
-    [offset, offset + shape) of the global tensor.  An even split (every
-    split the port makes) is worked out from the mesh coordinate alone,
-    with no tensor op, so that it also runs under a `FakeTensorMode` (the
-    dry run); an uneven one is DTensor's own."""
-    mesh, place = x.device_mesh, x.placements
-    size, off = list(x.shape), [0] * x.dim()
+    [offset, offset + shape) of the global tensor (`box`)."""
+    return box(tuple(x.shape), x.device_mesh, x.placements)
+
+
+def box(shape, mesh, place) -> tuple:
+    """(shape, offset) of this rank's block of a global tensor of `shape`
+    laid out on `mesh` with `place`.  An even split (every split the port
+    makes) is worked out from the mesh coordinate alone, with no tensor
+    op, so that it also runs under a `FakeTensorMode` (the dry run); an
+    uneven one is DTensor's own."""
+    size, off = list(shape), [0] * len(shape)
     coord = mesh.get_coordinate()
     for j, p in enumerate(place):
         if not p.is_shard():
@@ -168,11 +173,29 @@ def local_box(x) -> tuple:
         if size[p.dim] % mesh.size(j):
             from torch.distributed.tensor._utils import \
                 compute_local_shape_and_global_offset
-            return compute_local_shape_and_global_offset(x.shape, mesh,
-                                                         place)
+            return compute_local_shape_and_global_offset(
+                torch.Size(shape), mesh, place)
         size[p.dim] //= mesh.size(j)
         off[p.dim] += coord[j] * size[p.dim]
     return tuple(size), tuple(off)
+
+
+def rank_among(mesh, dims) -> tuple:
+    """(this rank's index among the ranks of the mesh dims `dims`, their
+    count), the first dim the most significant - the order in which
+    DTensor splits a tensor dim over several mesh dims."""
+    coord, r, m = mesh.get_coordinate(), 0, 1
+    for j in dims:
+        r, m = r * mesh.size(j) + coord[j], m * mesh.size(j)
+    return r, m
+
+
+def ceil_share(n: int, r: int, m: int) -> tuple:
+    """Rank r's share of n items dealt out ceil(n / m) a rank over m:
+    (first, end, width), the last ranks short or empty."""
+    width = -(-n // m)
+    first = min(r * width, n)
+    return first, min(first + width, n), width
 
 
 def on_local(fn, x: DTensor, *others, split, place=None) -> DTensor:
@@ -243,7 +266,11 @@ def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     projection).  The local product flattens only local tensors: DTensor's
     own rule takes no flatten of a split sequence, and for a small
     activation may split the contraction and hold every row's product on
-    every rank.  Other operands go to torch.matmul."""
+    every rank.  Where a's K and w's N are split over one mesh dim, the
+    smaller moves: w's K split alike (a partial sum, the rule above) for
+    an activation larger than w's shard, else a's K gathered and w's N
+    split kept (a decode token's few rows, where gathering the weight
+    would move more).  Other operands go to torch.matmul."""
     if not (is_dtensor(a) and is_dtensor(w)) or w.dim() != 2:
         return torch.matmul(a, w)
     mesh, last = a.device_mesh, a.dim() - 1
@@ -251,9 +278,14 @@ def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         Replicate() if p.is_partial() or (
             p.is_shard() and 0 < p.dim < last and q.is_shard(1)) else p
         for p, q in zip(a.placements, w.placements)])
-    w_place, out = [], []
-    for p, q in zip(a.placements, w.placements):
-        if p.is_shard(last):
+    small = a.to_local().numel() < w.to_local().numel()
+    w_place, out, a_place = [], [], list(a.placements)
+    for j, (p, q) in enumerate(zip(a.placements, w.placements)):
+        if p.is_shard(last) and q.is_shard(1) and small:
+            a_place[j] = Replicate()
+            w_place.append(q)
+            out.append(Shard(last))
+        elif p.is_shard(last):
             w_place.append(Shard(0))
             out.append(Partial())
         elif p.is_shard():
@@ -269,7 +301,7 @@ def matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             w_place.append(Replicate())
             out.append(Replicate())
     a = lay_out(a, mesh, [Shard(last) if o.is_partial() else p
-                          for p, o in zip(a.placements, out)])
+                          for p, o in zip(a_place, out)])
     return on_local(torch.matmul, a, lay_out(w, mesh, w_place),
                     split=range(a.dim()), place=out)
 

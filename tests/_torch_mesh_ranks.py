@@ -122,8 +122,9 @@ def sharded_step(mesh, cfg, run, state, batch, grad_shardings):
             "metric_types": sorted({type(v).__name__ for v in m.values()}),
             "param_err": worst, "param_scale": scale, "param_own": own,
             "m_err": m_err[0], "m_scale": m_err[1],
-            "placements": str(new.params["blocks"]["b0"]["mix"]["wq"]
-                              .placements),
+            "placements": str(next(
+                w for name, w in new.params["blocks"]["b0"]["mix"].items()
+                if name in ("wq", "in_proj")).placements),
             "wall_s": wall}
 
 
@@ -278,6 +279,21 @@ def check_train_moe(mesh, inputs):
             "dp_groups": policy.meta["dp_groups"]}
 
 
+def check_train_ssd(mesh, inputs):
+    """A mamba2-shaped step under the policy (FSDP, grad_shardings)
+    against the unsharded step: 3 heads of 32 whose 96 channels the two
+    "model" ranks share 48 each (rank 0 a head and a half), four SSD
+    chunks a row whose C B^T the two ranks share two each."""
+    cfg = dataclasses.replace(small("mamba2-130m"), d_model=48,
+                              ssm_head_dim=32)
+    run = RunConfig(model=cfg, mode="train", seq_len=16, global_batch=8,
+                    remat="dots", fsdp=True)
+    state, _ = ts.init_train_state(torch.Generator().manual_seed(9), cfg,
+                                   run)
+    batch = SyntheticLM(cfg, run, seed=9, device="cpu").batch(0)
+    return sharded_step(mesh, cfg, run, state, batch, True)
+
+
 def check_decode(mesh, inputs):
     cfg = cfg_of("glm4-9b", DENSE)
     run = RunConfig(model=cfg, mode="decode", seq_len=24, global_batch=8)
@@ -318,6 +334,46 @@ def check_decode(mesh, inputs):
             out["cache_err"] = max(
                 float((api.whole(a) - b).abs().max())
                 for a, b in zip(tree_leaves(sh_cache), tree_leaves(cache)))
+    return out
+
+
+def check_prefill_cache(mesh, inputs):
+    """`attention_prefill`'s cache under the policy against the unsharded
+    call, for a full cache longer than the prompt, one of its length, a
+    windowed ring that wraps and one with fewer slots than the window
+    (DENSE: two KV heads split over "model", their slots exchanged;
+    CONTEXT: one KV head, whole): the worst error of k and v relative to
+    their max, and each rank's local block of k."""
+    from repro_torch.models import attention
+    out = {}
+    for name, fields in (("dense", DENSE), ("context", CONTEXT)):
+        cfg = cfg_of("glm4-9b", fields)
+        run = RunConfig(model=cfg, mode="prefill", seq_len=16,
+                        global_batch=8, fsdp=True)
+        params = state_from(inputs, name).params
+        mix = {k: v[0] for k, v in params["blocks"]["b0"]["mix"].items()}
+        x = torch.randn((8, 16, cfg.d_model),
+                        generator=torch.Generator().manual_seed(8))
+        pos = torch.arange(16)[None].expand(8, 16)
+        for case, clen, window in (("longer", 24, None), ("equal", 16, None),
+                                   ("ring", 6, 6), ("short_ring", 4, 8)):
+            with torch.no_grad():
+                _, want = attention.attention_prefill(
+                    mix, x, pos, cfg, clen, window=window,
+                    cache_dtype=torch.float32)
+                with api.policy_scope(pt.make_policy(mesh, cfg, run)):
+                    placed = pt.distribute(params, pt.make_param_shardings(
+                        params, mesh, run.fsdp))
+                    _, got = attention.attention_prefill(
+                        tr._index(placed["blocks"], 0)["b0"]["mix"],
+                        pt.distribute(x, pt.batch_sharding(mesh, cfg, run)),
+                        pos, cfg, clen, window=window,
+                        cache_dtype=torch.float32)
+            out[f"{name}_{case}"] = {
+                "err": max(_rel(got[k], want[k]) for k in ("k", "v")),
+                "local": list(got["k"].to_local().shape),
+                "global": list(got["k"].shape),
+                "placements": str(got["k"].placements)}
     return out
 
 
@@ -625,7 +681,9 @@ def main():
                                     check_context_parallel),
                                    ("moe", check_moe),
                                   ("train_moe", check_train_moe),
+                                  ("train_ssd", check_train_ssd),
                                    ("decode", check_decode),
+                                   ("prefill_cache", check_prefill_cache),
                                    ("families", check_families),
                                    ("serving", check_serving))}
     elif WORLD == "elastic":

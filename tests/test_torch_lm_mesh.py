@@ -430,6 +430,20 @@ def test_moe_step_routed_on_each_ranks_rows(lm_world):
     assert out["m_err"] <= 1e-5 * out["m_scale"], out
 
 
+def test_ssd_step_shares_channels_and_chunks(lm_world):
+    """A mamba2-shaped step on the (4, 2) mesh with its SSD's channels
+    (a head and a half a rank) and C B^T chunks shared over "model":
+    loss and gradient norm 1e-5 relative, parameters and Adam moments
+    1e-5 of their max, against the unsharded step."""
+    out = lm_world.check("train_ssd")
+    assert abs(out["loss"] - out["plain_loss"]) <= 1e-5 * abs(
+        out["plain_loss"]), out
+    assert abs(out["grad_norm"] - out["plain_grad_norm"]) <= \
+        1e-5 * out["plain_grad_norm"], out
+    assert out["param_err"] <= 1e-5 * out["param_scale"], out
+    assert out["m_err"] <= 1e-5 * out["m_scale"], out
+
+
 def test_prefill_and_decode_under_the_policy(lm_world):
     """Prefill of 16 tokens and 4 greedy decode steps: the cache split
     on batch ("data") and sequence ("model") and written in place; each
@@ -439,6 +453,25 @@ def test_prefill_and_decode_under_the_policy(lm_world):
     assert out["err"] <= 1e-5, out
     assert out["ids_equal"]
     assert out["cache_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["dense", "context"])
+@pytest.mark.parametrize("case", ["longer", "equal", "ring", "short_ring"])
+def test_sharded_prefill_cache_equals_the_unsharded_one(lm_world, name,
+                                                        case):
+    """`attention_prefill` under the policy on the (4, 2) mesh builds its
+    cache on each rank's block of "act_cache" (batch on "data", slots on
+    "model"): a rank holds a quarter of the rows and half of the slots,
+    never the whole cache, and the cache equals the unsharded call's
+    within 1e-6 of its max - a full cache longer than the prompt, one of
+    its length, a windowed ring that wraps, one with fewer slots than the
+    window; two KV heads split over "model" (exchanged for slots) and
+    one whole."""
+    out = lm_world.check("prefill_cache")[f"{name}_{case}"]
+    b, clen, kv, hd = out["global"]
+    assert out["placements"] == "(Shard(dim=0), Shard(dim=1))", out
+    assert out["local"] == [b // 4, clen // 2, kv, hd], out
+    assert out["err"] <= 1e-6, out
 
 
 def test_greedy_pick_on_vocab_split_logits(lm_world):
