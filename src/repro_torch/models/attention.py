@@ -69,11 +69,17 @@ torch releases, and the local form is what a sharded kernel needs:
   llama4-maverick's 40 on a 16-wide axis).  The kernel's causal mask
   needs the queries from position 0, so that split takes the chunked
   route, the reference's prefill route; only use_flash=True holds the
-  kernel there, with q whole on every rank.
-  Projections whose features the heads do not split evenly are gathered
-  before the heads are split (`_heads`);
-- the sharded chunked route takes a query chunk whose float32 scores
-  stay within SCORE_BYTES (outside autograd);
+  kernel there, with q whole on every rank.  Projections whose features
+  the heads do not split evenly are laid out with their features whole
+  before the heads are split (`_heads`): under the context-parallel rule
+  split by their sequence (an all-to-all, RoPE on each rank's rows), so
+  that no rank holds q, k or v whole but the gathered keys and values,
+  which the chunked route reads head-major (`_seq_gathered`); else
+  gathered;
+- outside autograd the sharded chunked route holds one float32 copy of
+  a chunk's scores (`_weights_in_place`) and takes a query chunk whose
+  live scores stay within SCORE_BYTES; the unsharded one keeps
+  `torch.softmax`'s single pass, which one card's memory affords;
 - prefill builds its cache on each rank's block of "act_cache", the
   layout decode keeps it in (`_cache_local`: no rank holds k, v or the
   cache whole); decode writes a DTensor cache in place shard by shard
@@ -113,8 +119,10 @@ from repro_torch.sharding.api import (box, ceil_share, current_policy,
                                       whole)
 
 NEG_INF = -2.0 ** 30
-# A chunk's float32 scores at most this many bytes on a sharded prefill
-# (`_scores_chunk`): the queries' chunk the chunked route takes there.
+# A chunk's live scores at most this many bytes on a sharded prefill
+# (`_scores_chunk`): the scores in the activations' dtype and their one
+# float32 copy together, which set the query chunk the chunked route
+# takes there.
 SCORE_BYTES = 1 << 29
 
 
@@ -143,32 +151,56 @@ def _qkv(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     q = _heads(mm(x, params["wq"]), cfg.n_heads)
     k = _heads(mm(x, params["wk"]), cfg.kv_heads)
     v = _heads(mm(x, params["wv"]), cfg.kv_heads)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _heads(t: torch.Tensor, n: int) -> torch.Tensor:
     """(B, S, n*hd) -> (B, S, n, hd).  A DTensor whose features are split
-    over mesh dims that n heads do not divide (the context-parallel case)
-    is gathered along them first, as DTensor splits no head."""
+    over mesh dims that n heads do not divide is laid out with those
+    features whole first, as DTensor splits no head: split by its
+    sequence over them where the context-parallel rule ("act_kv") splits
+    the keys' sequence there (an all-to-all: no rank holds the
+    projection whole), else gathered."""
     b, s, f = t.shape
     if is_dtensor(t):
         mesh, place = t.device_mesh, t.placements
         split = [j for j, p in enumerate(place) if p.is_shard(2)]
         if n % math.prod(mesh.size(j) for j in split):
-            t = lay_out(t, mesh, [Replicate() if p.is_shard(2) else p
-                                  for p in place])
+            cp = rule_placements("act_kv", (b, s, n, f // n))
+            t = lay_out(t, mesh, [
+                (Shard(1) if cp is not None and cp[j].is_shard(1)
+                 else Replicate()) if p.is_shard(2) else p
+                for j, p in enumerate(place)])
     return t.reshape(b, s, n, f // n)
 
 
+def _rope(t: torch.Tensor, positions: torch.Tensor, theta: float
+          ) -> torch.Tensor:
+    """`rope` of t (B, S, H, hd); a DTensor whose sequence is split (the
+    context-parallel projections, `_heads`) on each rank's own rows with
+    their positions."""
+    if not (is_dtensor(t) and any(p.is_shard(1) for p in t.placements)):
+        return rope(t, positions, theta)
+    size, off = local_box(t)
+    pos = whole(positions)[off[0]:off[0] + size[0],
+                           off[1]:off[1] + size[1]]
+    return on_local(lambda u: rope(u, pos, theta), t, split=(0, 1, 2))
+
+
 def _chunked_attend(q, k, v, positions, window: Optional[int],
-                    q_chunk: int, q_positions=None) -> torch.Tensor:
+                    q_chunk: int, q_positions=None,
+                    one_copy: bool = False) -> torch.Tensor:
     """Q-chunked causal attention core, flat-head layout.
 
     q: (B, Sq, H, hd), k, v: (B, S, H, hd), KV heads already repeated to
     H; positions (B, S) are the keys', q_positions (B, Sq) the queries'
-    (default: the keys').  Returns (B, Sq, H, hd).
+    (default: the keys').  Returns (B, Sq, H, hd).  With `one_copy`
+    (the sharded route, whose peak a chip is held to the reference's)
+    and outside autograd, a chunk's softmax holds one float32 copy of
+    its scores (`_weights_in_place`); else `torch.softmax`'s one fused
+    pass over the float32 cast, as under autograd.
     """
     if q_positions is None:
         q_positions = positions
@@ -176,30 +208,63 @@ def _chunked_attend(q, k, v, positions, window: Optional[int],
     scale = q.shape[-1] ** -0.5
     q_chunk = min(q_chunk, s)
     assert s % q_chunk == 0, (s, q_chunk)
+    in_place = one_copy and not _records_grad(q, k, v)
     outs = []
     for c in range(s // q_chunk):
         q_i = q[:, c * q_chunk:(c + 1) * q_chunk]
         pos_i = q_positions[:, c * q_chunk:(c + 1) * q_chunk]
-        scores = einsum("bqhd,bshd->bhqs", q_i, k) * scale
         mask = pos_i[:, None, :, None] >= positions[:, None, None, :]
         if window is not None:
             near = (pos_i[:, None, :, None]
                     - positions[:, None, None, :]) < window
             mask = torch.logical_and(mask, near)
-        scores = _mask(scores, mask)
-        w = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+        if in_place:            # the scores handed over, not held here
+            w = _weights_in_place(einsum("bqhd,bshd->bhqs", q_i, k), scale,
+                                  mask, q.dtype)
+        else:
+            scores = _mask(einsum("bqhd,bshd->bhqs", q_i, k) * scale, mask)
+            w = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+            del scores          # not held into the next chunk's
         outs.append(einsum("bhqs,bshd->bqhd", w, v))
+        del w
     return torch.cat(outs, dim=1)
 
 
-def _scores_chunk(q_chunk: int, b: int, sq: int, h: int, sk: int) -> int:
-    """The query chunk of a sharded prefill's chunked route: q_chunk
-    (clipped to the sq local queries) halved while a chunk's float32
-    scores (b, h, chunk, sk) exceed SCORE_BYTES and the half still
-    divides sq.  Each query's softmax is its own, so the chunk changes
-    what is live at once, not the result."""
+def _weights_in_place(scores: torch.Tensor, scale: float,
+                      keep: torch.Tensor, dtype) -> torch.Tensor:
+    """The softmax weights of a chunk's raw scores (B, H, q, S), as the
+    reference's: scaled and NEG_INF where not `keep` in their dtype (-inf
+    in float16, whose range it passes, as `_mask`), then softmax in
+    float32 along the keys - exp(x - max) / sum - and cast to `dtype`,
+    with one float32 copy live: the scaling and the mask run in place on
+    `scores`, the float32 copy is made by the shift (x - max, the cast in
+    the same pass), and the rest runs in place on it.  Outside autograd
+    only (`scores` is a temporary of the caller's)."""
+    f32 = torch.float32
+    scores.mul_(scale)
+    fill = -math.inf if torch.finfo(scores.dtype).max < -NEG_INF \
+        else NEG_INF
+    scores.masked_fill_(torch.logical_not(keep), fill)
+    top = scores.amax(dim=-1, keepdim=True).to(f32)
+    e = scores.sub_(top) if scores.dtype == f32 else torch.sub(scores, top)
+    del scores
+    e.exp_()
+    e.div_(e.sum(dim=-1, keepdim=True))
+    return e.to(dtype)
+
+
+def _scores_chunk(q_chunk: int, b: int, sq: int, h: int, sk: int,
+                  itemsize: int) -> int:
+    """The query chunk of a sharded prefill's chunked route, outside
+    autograd: q_chunk (clipped to the sq local queries) halved while a
+    chunk's live scores (b, h, chunk, sk) - in the activations' dtype of
+    `itemsize` bytes beside their float32 copy (`_weights_in_place`; one
+    buffer in float32) - exceed SCORE_BYTES and the half still divides
+    sq.  Each query's softmax is its own, so the chunk changes what is
+    live at once, not the result."""
+    per = 4 + (itemsize if itemsize != 4 else 0)
     c = min(q_chunk, sq)
-    while b * h * c * sk * 4 > SCORE_BYTES and c % 2 == 0 and c > 1:
+    while b * h * c * sk * per > SCORE_BYTES and c % 2 == 0 and c > 1:
         c //= 2
     return c
 
@@ -224,13 +289,31 @@ def _flash_route(use_flash: Optional[bool], window: Optional[int],
     return bool(use_flash)
 
 
-def _layout(q, k, v, cfg: ModelConfig):
+def _layout(q, k, v, cfg: ModelConfig, keep_flash: bool = False):
     """KV heads repeated to H (query head h reads kv head h // q_per_kv),
-    then q, k, v laid out by the policy's "act_q" / "act_kv" rules."""
-    if cfg.q_per_kv > 1:
-        k = torch.repeat_interleave(k, cfg.q_per_kv, dim=2)   # (B, S, H, hd)
-        v = torch.repeat_interleave(v, cfg.q_per_kv, dim=2)
-    return shard(q, "act_q"), shard(k, "act_kv"), shard(v, "act_kv")
+    then q, k, v laid out by the policy's "act_q" / "act_kv" rules - but
+    a q whose sequence is already split where k's is (the
+    context-parallel projections, `_heads`) keeps that split unless
+    `keep_flash`: "act_q" would gather it whole only for `_attend` to
+    split it again."""
+    g = cfg.q_per_kv
+    if g > 1:   # (B, S, H, hd).  A block of whole KV heads repeats to the
+        # query heads that read it, so a DTensor's shards repeat alone
+        k, v = (on_local(torch.repeat_interleave, t, g, 2, split=range(4))
+                if is_dtensor(t) else torch.repeat_interleave(t, g, dim=2)
+                for t in (k, v))
+    k, v = shard(k, "act_kv"), shard(v, "act_kv")
+    if keep_flash or not _seq_split_alike(q, k):
+        q = shard(q, "act_q")
+    return q, k, v
+
+
+def _seq_split_alike(q, k) -> bool:
+    """Whether DTensors q and k are both split by their sequence (dim 1)
+    over a mesh dim of more than one rank."""
+    return is_dtensor(q) and is_dtensor(k) and any(
+        p.is_shard(1) and r.is_shard(1) and q.device_mesh.size(j) > 1
+        for j, (p, r) in enumerate(zip(q.placements, k.placements)))
 
 
 def _records_grad(*tensors) -> bool:
@@ -250,21 +333,23 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
     holds the kernel's route with q whole (module docstring).  Returns
     (B, S, H*hd)."""
     b, s = q.shape[0], q.shape[1]
-    q, k, v = _layout(q, k, v, cfg)
+    q, k, v = _layout(q, k, v, cfg, keep_flash)
 
     def core(q, k, v, positions, q_positions):
         if flash:
             return _flash_local(q, k, v)
-        chunk = q_chunk
+        chunk, one_copy = q_chunk, False
         if q_positions is not None and not _records_grad(q, k, v):
             chunk = _scores_chunk(q_chunk, q.shape[0], q.shape[1],
-                                  q.shape[2], k.shape[1])
+                                  q.shape[2], k.shape[1], q.element_size())
+            one_copy = True
         return _chunked_attend(q, k, v, positions, window, chunk,
-                               q_positions)
+                               q_positions, one_copy)
 
     if is_dtensor(q):           # batch rows and heads split, as q's
         mesh = q.device_mesh
-        seq = [p.is_replicate() and r.is_shard(1) and mesh.size(j) > 1
+        seq = [(p.is_shard(1) or p.is_replicate() and r.is_shard(1))
+               and mesh.size(j) > 1
                for j, (p, r) in enumerate(zip(q.placements, k.placements))]
         if any(seq) and flash and keep_flash:
             seq = [False] * len(seq)    # the kernel's mask starts at query 0
@@ -272,7 +357,7 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
             flash = False
             q = lay_out(q, mesh, [Shard(1) if cut else p
                                   for p, cut in zip(q.placements, seq)])
-        k, v = (lay_out(t, mesh, [Replicate() if p.is_shard(1) else p
+        k, v = (_seq_gathered(t, [Replicate() if p.is_shard(1) else p
                                   for p in q.placements]) for t in (k, v))
         size, off = local_box(q)
         rows = whole(positions)[off[0]:off[0] + size[0]]
@@ -281,6 +366,28 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
     else:
         out = core(q, k, v, positions, None)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+
+
+def _seq_gathered(t: torch.Tensor, place) -> torch.Tensor:
+    """The DTensor t (B, S, H, hd) laid out by `place`.  Where that
+    gathers its sequence, it is gathered in the (B, H, S, hd) order and
+    handed back as a (B, S, H, hd) view of that storage: the chunked
+    route's products then read each head's keys and values in place,
+    where a sequence-major t is copied head-major for every query
+    chunk's product."""
+    mesh = t.device_mesh
+    if not any(p.is_shard(1) and not r.is_shard(1)
+               for p, r in zip(t.placements, place)):
+        return lay_out(t, mesh, place)
+
+    def swap(pl):               # the placements with dims 1 and 2 swapped
+        return [Shard({1: 2, 2: 1}.get(p.dim, p.dim)) if p.is_shard()
+                else p for p in pl]
+    t = on_local(lambda u: u.transpose(1, 2), t, split=range(4),
+                 place=swap(t.placements))
+    t = lay_out(t, mesh, swap(place))
+    return on_local(lambda u: u.transpose(1, 2), t, split=range(4),
+                    place=list(place))
 
 
 def _flash_local(q, k, v) -> torch.Tensor:
@@ -325,20 +432,22 @@ def attention_prefill(params: Dict, x: torch.Tensor,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
+    del x               # dead once projected: not held through attention
     flash = _flash_route(use_flash, window, cfg.head_dim, q.dtype,
                          q.is_cuda, _records_grad(q, k, v))
     out = _attend(q, k, v, positions, cfg, flash, window, q_chunk,
                   keep_flash=use_flash is True)
+    del q
 
     target = rule_placements("act_cache", (b, cache_len) + tuple(k.shape[2:]))
     if target is None:
         k, v = whole(k), whole(v)
         shape = (b, cache_len) + tuple(k.shape[2:])
-        cache_k = torch.zeros(shape, dtype=cache_dtype, device=x.device)
+        cache_k = torch.zeros(shape, dtype=cache_dtype, device=k.device)
         cache_v = torch.zeros_like(cache_k)
         if window is not None:
             w_eff = min(window, s)
-            slots = torch.arange(s - w_eff, s, device=x.device) % cache_len
+            slots = torch.arange(s - w_eff, s, device=k.device) % cache_len
             cache_k[:, slots] = k[:, -w_eff:].to(cache_dtype)
             cache_v[:, slots] = v[:, -w_eff:].to(cache_dtype)
         else:

@@ -21,7 +21,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.api import matmul, seq_whole
+from repro_torch.sharding.api import is_dtensor, matmul, seq_whole
 
 
 def _common(*xs):
@@ -47,15 +47,25 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """The reference's float32 RMS norm.  Where autograd records nothing
     and the float32 copy is a fresh tensor, its two scalings run in place
-    on it (the same products in the same order), so the cast back meets
-    one float32 copy of the activations where the out-of-place form
-    holds two (XLA fuses them into none)."""
+    on it (the same products in the same order).  For a DTensor (a
+    sharded run, whose peak a chip is what a deployment is sized on; not
+    a partial sum, which the square must reduce first) the copy is the
+    one float32 buffer: squared in place for the variance and cast from
+    x into again, so the norm holds one float32 copy of the activations
+    where the out-of-place square holds two (XLA fuses them into none);
+    a plain tensor keeps the square's own buffer, one pass fewer."""
     dtype = x.dtype
     x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    in_place = x32 is not x and not (
+        torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad))
+    if in_place and is_dtensor(x) and not any(p.is_partial()
+                                              for p in x.placements):
+        var = torch.mean(x32.square_(), dim=-1, keepdim=True)
+        x32.copy_(x)
+    else:
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     scale = 1.0 + weight.to(torch.float32)
-    if x32 is not x and not (torch.is_grad_enabled()
-                             and (x.requires_grad or weight.requires_grad)):
+    if in_place:
         return x32.mul_(torch.rsqrt(var + eps)).mul_(scale).to(dtype)
     x32 = x32 * torch.rsqrt(var + eps)
     return (x32 * scale).to(dtype)
@@ -83,6 +93,7 @@ def swiglu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int, dtype
 def swiglu_ffn(params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = seq_whole(x)
     h = F.silu(mm(x, params["gate"])) * mm(x, params["up"])
+    del x                       # not held through the down projection
     return mm(h, params["down"])
 
 

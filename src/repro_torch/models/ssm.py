@@ -28,14 +28,14 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import init_dense, mm, rms_norm
 from repro_torch.sharding.api import (ceil_share, is_dtensor, lay_out,
-                                      on_local, rank_among, replicated,
-                                      whole)
+                                      local_box, on_local, rank_among,
+                                      replicated, whole)
 
 
 def _dims(cfg: ModelConfig):
@@ -79,44 +79,153 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def ssm_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 return_cache: bool = False):
     """Chunked SSD, full sequence.  x: (B, S, d) -> (B, S, d).  Under a
-    mesh the SSD runs on each rank's batch rows, the in-projection's
-    features gathered, and the ranks that share those rows share out the
-    H * P channels (`_head_share`: ceil(H P / m) a rank, mamba2's 1536
-    channels 96 a rank on 16, where its 24 heads split evenly over no
-    16-wide axis): the inter-chunk products on the rank's channels, the
-    intra-chunk one on the heads they touch, the heads' shared C B^T on
-    a share of the chunks (`_cb_shared`); the projections stay on
-    DTensors."""
+    mesh the SSD runs on each rank's batch rows, and the ranks that share
+    those rows share out the H * P channels (`_head_share`: ceil(H P / m)
+    a rank, mamba2's 1536 channels 96 a rank on 16, where its 24 heads
+    split evenly over no 16-wide axis).  The in-projection runs on a
+    share of the sequence (`_rows_apart`), and each rank gathers of it
+    only what it needs: B, C and dt whole, z on its channels, x on the
+    heads they touch (`_share_zx`: one all-to-all).  The conv runs on
+    those x channels with B and C, the inter-chunk products on the
+    rank's channels, the intra-chunk one on the heads they touch, the
+    heads' shared C B^T on a share of the chunks (`_cb_shared`), the
+    gated norm on the channel share (`_gate_share`), and the out
+    projection on it, row-parallel; no rank holds the in-projection, y
+    or the conv input whole.  The conv history in the cache is gathered
+    from each rank's last rows (`_conv_tail`), laid out as decode keeps
+    it."""
     d_inner, h, p, n = _dims(cfg)
+    dtype = x.dtype
     zxbcdt = mm(_rows_apart(x, params["in_proj"]), params["in_proj"])
+    del x                       # dead once projected
     weights = [params[k] for k in ("conv_w", "dt_bias", "a_log", "d_skip")]
-    norm_w = params["norm_w"]
+    w_out = params["out_proj"]
     if not is_dtensor(zxbcdt):
-        y, state, conv = _forward_core(zxbcdt, *weights, cfg,
-                                       (0, d_inner, d_inner))
-        y = _gate(y, zxbcdt, norm_w, cfg, x.dtype)
+        _, xs, bc, dt = torch.split(zxbcdt, [d_inner, d_inner, 2 * n, h],
+                                    dim=-1)
+        y, state = _forward_core(xs, bc, dt, *weights, cfg,
+                                 (0, d_inner, d_inner))
+        tail = -(cfg.conv_kernel - 1)   # a copy: no view of the whole input
+        conv = torch.cat([xs[:, tail:], bc[:, tail:]], dim=-1)
+        y = _gate(y, zxbcdt, params["norm_w"], cfg, dtype)
     else:
         mesh = zxbcdt.device_mesh
+        zxbcdt = lay_out(zxbcdt, mesh, [      # its features whole
+            Replicate() if p.is_shard(2) else p for p in zxbcdt.placements])
         rows = [p if p.is_shard(0) else Replicate()
                 for p in zxbcdt.placements]
-        zxbcdt = lay_out(zxbcdt, mesh, rows)
         chans, by_chan, by_state = _head_share(mesh, rows, d_inner)
-        y, state, conv = on_local(
-            functools.partial(_forward_core, chans=chans,
-                              cb=_cb_shared(mesh, rows)), zxbcdt,
-            *(replicated(w, mesh) for w in weights), cfg, split=(0,),
-            place=(by_chan, by_state, rows))
-        y = on_local(lambda t: t.to(x.dtype), y, split=(0, 2))
-        y = on_local(lambda t, zx, w: _gate(t[..., :d_inner], zx, w, cfg,
-                                            x.dtype),
-                     lay_out(y, mesh, rows), zxbcdt, replicated(norm_w, mesh),
-                     split=(0,), place=rows)
+        zx = _share_zx(zxbcdt, rows, chans, cfg)
+        bcdt = lay_out(on_local(lambda t: t[..., 2 * d_inner:], zxbcdt,
+                                split=range(3)), mesh, rows)
+        conv = _conv_tail(zxbcdt, rows, cfg)
+        del zxbcdt
+        width = chans[2]
+
+        def core(zx, bcdt, *weights):
+            return _forward_core(zx[..., width:], bcdt[..., :2 * n],
+                                 bcdt[..., 2 * n:], *weights, cfg, chans,
+                                 _cb_shared(mesh, rows))
+        y, state = on_local(core, zx, bcdt,
+                            *(replicated(w, mesh) for w in weights),
+                            split=(0, 2), place=(by_chan, by_state))
+        del bcdt
+        y = _gate_share(y, zx, params["norm_w"], cfg, dtype, rows, chans)
+        del zx
         state = lay_out(state, mesh, rows)
+        if y.shape[-1] != d_inner:      # a short last share: zero rows
+            w_out = lay_out(w_out, mesh, [Replicate() if p.is_shard(0)
+                                          else p for p in w_out.placements])
+            w_out = on_local(lambda t: F.pad(t, (0, 0, 0, y.shape[-1]
+                                                 - d_inner)),
+                             w_out, split=(1,))
     state = _heads_of(state, h, p)
-    out = mm(y, params["out_proj"])
+    out = mm(y, w_out)
     if not return_cache:
         return out
     return out, {"state": state, "conv": conv}
+
+
+def _share_zx(zxbcdt: torch.Tensor, rows, chans, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """Each rank's z channels [first, end) (padded to `width`) and the x
+    channels of the heads they touch (padded to the widest such span),
+    from the in-projection `zxbcdt` (a DTensor, its sequence split or
+    whole): every rank cuts, from its own rows, the columns each rank of
+    the channels' share needs, and one layout change moves them (an
+    all-to-all over the dims that split the sequence; no communication
+    where it is whole).  Returns a (B, S, m * (width + span)) DTensor laid
+    out as `_head_share`'s channel stack: each rank's local block is its
+    (B rows, S, width + span)."""
+    mesh = zxbcdt.device_mesh
+    d_inner, _, p, _ = _dims(cfg)
+    over = [j for j, q in enumerate(rows) if q.is_replicate()]
+    _, m = rank_among(mesh, over)
+    width = chans[2]
+    spans = []
+    for r in range(m):
+        first, end, _ = ceil_share(d_inner, r, m)
+        h0, h1 = first // p, -(-end // p)
+        spans.append(((first, end), (d_inner + h0 * p, d_inner + h1 * p)))
+    span = max(b - a for _, (a, b) in spans)
+
+    def cut(t):
+        parts = []
+        for (z0, z1), (x0, x1) in spans:
+            for a, b, w in ((z0, z1, width), (x0, x1, span)):
+                part = t[..., a:b]
+                if b - a < w:
+                    part = F.pad(part, (0, w - (b - a)))
+                parts.append(part)
+        return torch.cat(parts, dim=-1)
+    return _seq_to_chans(on_local(cut, zxbcdt, split=range(2)), rows)
+
+
+def _seq_to_chans(stack: torch.Tensor, rows) -> torch.Tensor:
+    """A (B, S, m * W) DTensor, its sequence split or whole, laid out as
+    `_head_share`'s channel stack (rank r of the m that share the
+    channels holds columns [r W, (r + 1) W) with the sequence whole).
+    Where one mesh dim splits the sequence and the channels, each rank
+    sends each other rank its rows of that rank's columns in one
+    all-to-all (DTensor's own layout change gathers the whole stack on a
+    CPU mesh); any other layout is DTensor's."""
+    from torch.distributed import _functional_collectives as funcol
+    mesh = stack.device_mesh
+    over = [j for j, q in enumerate(rows) if q.is_replicate()]
+    target = [Shard(2) if j in over else q for j, q in enumerate(rows)]
+    seq = [j for j, q in enumerate(stack.placements) if q.is_shard(1)]
+    wide = [j for j in over if mesh.size(j) > 1]
+    if not (len(seq) == 1 and wide == seq and all(
+            q == r for j, (q, r) in enumerate(zip(stack.placements, rows))
+            if j not in seq)):
+        return lay_out(stack, mesh, target)
+    j, m = seq[0], mesh.size(seq[0])
+    swap = getattr(funcol, "all_to_all_single_autograd", None) or \
+        funcol.all_to_all_single
+
+    def move(t):                # rows to ranks by their columns' owner
+        b, sl, f = t.shape
+        send = t.reshape(b, sl, m, f // m).permute(2, 0, 1, 3).contiguous()
+        got = swap(send, None, None, (mesh, j))    # (source rank, B, sl, W)
+        return got.permute(1, 0, 2, 3).reshape(b, m * sl, f // m)
+    return on_local(move, stack, split=(0, 1), place=target)
+
+
+def _conv_tail(zxbcdt: torch.Tensor, rows, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The conv history a prefill leaves for decode: the last K - 1 rows
+    of the conv input (x, B, C), laid out by `rows` (whole channels on
+    every rank that holds the batch rows).  Where the sequence is split,
+    each rank gives its own last min(K - 1, local rows) rows, those are
+    gathered in order and the last K - 1 kept - never the whole input."""
+    d_inner, _, _, n = _dims(cfg)
+    k = cfg.conv_kernel - 1
+    mesh = zxbcdt.device_mesh
+    t = min(k, local_box(zxbcdt)[0][1])
+    tails = on_local(lambda u: u[:, -t:, d_inner:2 * d_inner + 2 * n]
+                     .clone(), zxbcdt, split=range(2))
+    tails = lay_out(tails, mesh, rows)
+    return on_local(lambda u: u[:, -k:], tails, split=(0,))
 
 
 def _heads_of(state: torch.Tensor, h: int, p: int) -> torch.Tensor:
@@ -198,36 +307,70 @@ def _cb_shared(mesh, rows):
 def _gate(y, zxbcdt, norm_w, cfg: ModelConfig, dtype):
     """The gated RMSNorm of the SSD's y (B, S, d_inner) float32 with z, the
     in-projection's first d_inner features, in `dtype` (the out
-    projection follows).  A sharded y comes cast to `dtype` before it is
-    gathered (the same values, half the bytes)."""
+    projection follows)."""
     d_inner = _dims(cfg)[0]
     y = y.to(dtype)
     return rms_norm(y * F.silu(zxbcdt[..., :d_inner]), norm_w, cfg.norm_eps)
 
 
-def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
+def _gate_share(y, zx, norm_w, cfg: ModelConfig, dtype, rows, chans):
+    """`_gate` on each rank's share of the channels: y (B, S, m * width)
+    float32 and the z share of zx (`_share_zx`), both laid out as
+    `_head_share`'s channel stack.  Each rank forms y · silu(z) in
+    `dtype` on its channels and its float32 sum of squares; the sums are
+    added over the ranks that share the channels (an all-reduce of (B,
+    S, 1); a short share's padding, zero in y and z, adds nothing), and
+    each share is scaled by rsqrt(sum / d_inner + eps) and (1 + norm_w)
+    on its channels.  The reference's values, but for the order of the
+    sum of squares.  Returns the normalised share in `dtype`, laid out
+    as y."""
+    d_inner = _dims(cfg)[0]
+    first, end, width = chans
+    mesh = y.device_mesh
+    f32 = torch.float32
+    g = on_local(lambda t, z: t.to(dtype) * F.silu(z[..., :width]), y, zx,
+                 split=(0, 2))
+    ss = on_local(lambda t: torch.sum(torch.square(t.to(f32)), dim=-1,
+                                      keepdim=True), g, split=(0, 2),
+                  place=[Partial() if p.is_replicate() else p for p in rows])
+    ss = lay_out(ss, mesh, rows)
+
+    def scale(t, ss, w):
+        w = F.pad(1.0 + w[first:end].to(f32), (0, width - (end - first)))
+        return (t.to(f32) * torch.rsqrt(ss / d_inner + cfg.norm_eps)
+                * w).to(dtype)
+    return on_local(scale, g, ss, replicated(norm_w, mesh), split=(0, 2))
+
+
+def _forward_core(xs, bc, dt, conv_w, dt_bias, a_log, d_skip,
                   cfg: ModelConfig, chans, cb=_cb):
-    """The SSD of plain tensors from the in-projection (B, S, F), for
-    channels [first, end) of the H * P (head-major) of `chans` = (first,
-    end, width): (y (B, S, width) float32 with the skip term, the last
-    state (B, width, N), the conv history's tail), channels past `end`
-    zero.  The intra-chunk product runs on the heads the channels touch
-    (its decay is a head's), the inter-chunk products and the state on
-    the channels alone.  All channels (0, H P, H P) is the reference's
-    SSD op for op.  `cb` computes the heads' shared C B^T (`_cb`, or its
-    chunks shared over ranks: `_cb_shared`)."""
-    b, s, _ = zxbcdt.shape
+    """The SSD of plain tensors for channels [first, end) of the H * P
+    (head-major) of `chans` = (first, end, width), from the
+    in-projection's parts: xs (B, S, >= (h1 - h0) P), the x channels of
+    the heads [h0, h1) those channels touch (columns past them are
+    padding), bc (B, S, 2N) B and C, dt (B, S, H) every head's; conv_w
+    (K, d_inner + 2N) whole.  Returns (y (B, S, width) float32 with the
+    skip term, the last state (B, width, N)), channels past `end` zero.
+    The conv runs on the heads' x channels with B and C, the intra-chunk
+    product on the heads (its decay is a head's), the inter-chunk
+    products and the state on the channels alone.  All channels (0, H P,
+    H P) is the reference's SSD op for op.  `cb` computes the heads'
+    shared C B^T (`_cb`, or its chunks shared over ranks:
+    `_cb_shared`)."""
+    b, s, _ = xs.shape
     d_inner, h, p, n = _dims(cfg)
     first, end, width = chans
     h0, h1 = first // p, -(-end // p)           # the heads touched
     lo, hi = first - h0 * p, end - h0 * p       # their channels kept
     f32 = torch.float32
-    _, xs, bc, dt = torch.split(zxbcdt, [d_inner, d_inner, 2 * n, h],
-                                dim=-1)
-    conv_in = torch.cat([xs, bc], dim=-1)
+    conv_in = torch.cat([xs[..., :(h1 - h0) * p], bc], dim=-1)
+    if (h0, h1) != (0, h):
+        conv_w = torch.cat([conv_w[:, h0 * p:h1 * p], conv_w[:, d_inner:]],
+                           dim=-1)
     conv_out = _causal_conv(conv_in, conv_w)
-    xs, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
-    xh = xs.reshape(b, s, h, p)[:, :, h0:h1]
+    del conv_in
+    xs, bmat, cmat = torch.split(conv_out, [(h1 - h0) * p, n, n], dim=-1)
+    xh = xs.reshape(b, s, h1 - h0, p)
     h = h1 - h0
     dt = F.softplus(dt[..., h0:h1].to(f32)
                     + dt_bias[h0:h1])                          # (B, S, H)
@@ -253,7 +396,7 @@ def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
     # L[i, j] = exp(cum_i - cum_j) for i >= j, masked before the exp
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B,NC,i,j,H)
     mask = torch.ones((ch, ch), dtype=torch.bool,
-                      device=zxbcdt.device).tril()
+                      device=xs.device).tril()
     decay = torch.exp(torch.where(mask[:, :, None], diff, -math.inf))
     cb = cb(cmat_c, bmat_c)                                   # (B,NC,i,j)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay,
@@ -265,7 +408,7 @@ def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
     w_in = kept(torch.exp(total[:, :, None, :] - cum))         # (B,NC,ch,C)
     state_c = torch.einsum("bcjn,bcjk->bckn", bmat_c,
                            xbar * w_in)                        # (B,NC,C,N)
-    state = torch.zeros((b, hi - lo, n), dtype=f32, device=zxbcdt.device)
+    state = torch.zeros((b, hi - lo, n), dtype=f32, device=xs.device)
     step = kept(torch.exp(total))                              # (B,NC,C)
     in_states = []
     for c in range(nc):
@@ -279,11 +422,10 @@ def _forward_core(zxbcdt, conv_w, dt_bias, a_log, d_skip,
 
     y = (y_intra + y_inter).reshape(b, s, hi - lo)
     y = y + kept(d_skip[h0:h1]) * xh.reshape(b, s, h * p)[..., lo:hi].to(f32)
-    conv = conv_in[:, -(cfg.conv_kernel - 1):, :]
     if hi - lo < width:             # a rank's short share of the channels
         y = F.pad(y, (0, width - (hi - lo)))
         state = F.pad(state, (0, 0, 0, width - (hi - lo)))
-    return y, state, conv
+    return y, state
 
 
 # ---------------------------------------------------------------------------

@@ -109,12 +109,17 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.d_ff == 0:
         return x, aux
-    h = rms_norm(x, params["ln2"], cfg.norm_eps)
+    # the norm's output is handed on, not held here, and the FFN's
+    # output laid out before the residual's add: neither the norm's
+    # output nor a partial sum's storage is live at the add
     if is_moe:
-        out, aux = moe_mod.moe_ffn(params["ffn"], h, cfg)
+        out, aux = moe_mod.moe_ffn(
+            params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps), cfg)
     else:
-        out = swiglu_ffn(params["ffn"], h)
-    return x + shard(out, "act_btd"), aux
+        out = swiglu_ffn(params["ffn"],
+                         rms_norm(x, params["ln2"], cfg.norm_eps))
+    out = shard(out, "act_btd")
+    return x + out, aux
 
 
 def _window(cfg: ModelConfig, unit) -> Optional[int]:
@@ -382,19 +387,21 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                   window: Optional[int], cache_len: int, cache_dtype, *,
                   use_flash: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    # the norm's output is handed to the mixer, not held here: the
+    # mixer drops it once projected, before attention's or the SSD's peak
+    norm = functools.partial(rms_norm, x, params["ln1"], cfg.norm_eps)
     if kind == "attn":
         clen = min(cache_len, window) if window is not None else cache_len
         mixed, cache = attn_mod.attention_prefill(
-            params["mix"], h, positions, cfg, clen, window=window,
+            params["mix"], norm(), positions, cfg, clen, window=window,
             cache_dtype=cache_dtype, use_flash=use_flash)
     elif kind == "rec":
-        mixed, cache = rglru_mod.rglru_forward(params["mix"], h, cfg,
+        mixed, cache = rglru_mod.rglru_forward(params["mix"], norm(), cfg,
                                                return_cache=True)
     else:
-        mixed, cache = ssm_mod.ssm_forward(params["mix"], h, cfg,
+        mixed, cache = ssm_mod.ssm_forward(params["mix"], norm(), cfg,
                                            return_cache=True)
-    del h                       # dead: not held through the FFN
+    del norm                    # holds x, which the residual frees
     x = shard(x + shard(mixed, "act_btd"), "act_btd")
     del mixed
     x, aux = _ffn(params, x, cfg, is_moe)
@@ -416,26 +423,35 @@ def prefill(params: Dict, cfg: ModelConfig, *,
     unit, n_rep, n_rem = stack_layout(cfg)
     window = _window(cfg, unit)
 
+    # the residual stream is handed to each block out of a list, so that
+    # the block holds its input alone and frees it once the mixer's
+    # output is added (a local here would hold it through the FFN)
+    stream = [x]
+    del x
     cache: Dict[str, Any] = {}
     stacked = None
     for r in range(n_rep):
         lp = _index(params["blocks"], r)
         caches = {}
         for i, (kind, is_moe) in enumerate(unit):
-            x, caches[f"b{i}"], _ = block_prefill(
-                lp[f"b{i}"], x, positions, cfg, kind, is_moe,
+            out, caches[f"b{i}"], _ = block_prefill(
+                lp[f"b{i}"], stream.pop(), positions, cfg, kind, is_moe,
                 window if kind == "attn" else None, cache_len, cache_dtype,
                 use_flash=use_flash)
+            stream.append(out)
+            del out
         stacked = _stack_into(stacked, caches, r, n_rep)
     if stacked is not None:
         cache["blocks"] = stacked
     for r in range(n_rem):
         kind, is_moe = unit[r]
-        x, cache[f"rem{r}"], _ = block_prefill(
-            params[f"rem{r}"], x, positions, cfg, kind, is_moe,
+        out, cache[f"rem{r}"], _ = block_prefill(
+            params[f"rem{r}"], stream.pop(), positions, cfg, kind, is_moe,
             window if kind == "attn" else None, cache_len, cache_dtype,
             use_flash=use_flash)
-    logits = _head(params, cfg, x[:, -1:])
+        stream.append(out)
+        del out
+    logits = _head(params, cfg, stream.pop()[:, -1:])
     return logits[:, 0, :], cache
 
 

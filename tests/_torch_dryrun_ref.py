@@ -1,13 +1,15 @@
 """The reference's dry-run numbers for the serving and solver cells
 (`REF_SERVE`) and the port's traces of them, shared by
-`tests/test_torch_dryrun_serve.py` and `test_torch_dryrun_serve_equal.py`
-(two files, so that `--dist loadfile` gives each its own worker).
-Imports nothing of the JAX package."""
+`tests/test_torch_dryrun_serve.py`, `test_torch_dryrun_serve_cp.py` and
+`test_torch_dryrun_serve_equal.py` (three files, so that `--dist
+loadfile` gives each its own worker).  Imports nothing of the JAX
+package."""
 import functools
 
 from repro_torch.launch import dryrun
 
 CHIP_BYTES = 80e9
+PEAK_REF = 1.3          # a prefill's peak a chip against the reference's
 
 # The reference's cells, a chip's (peak bytes - XLA's argument + temp -,
 # FLOPs, collective bytes), keyed "arch|shape|mesh", as
@@ -112,3 +114,10 @@ def ratio(arch, shape, mesh="16x16"):
     r = trace(arch, shape, mesh)
     assert r["mesh"] == mesh, r.get("error", r)
     return r["flops_per_chip"] / REF_SERVE[f"{arch}|{shape}|{mesh}"][1], r
+
+
+def peak_within(arch, r, mesh="16x16"):
+    """A prefill's peak a chip within PEAK_REF x the reference's."""
+    peak = r["memory"]["peak_bytes"]
+    bound = PEAK_REF * REF_SERVE[f"{arch}|prefill_32k|{mesh}"][0]
+    assert peak <= bound, (peak, bound, r["peak_live"])

@@ -545,6 +545,61 @@ def check_serving(mesh, inputs):
     return out
 
 
+def check_ssd_share(mesh, inputs):
+    """A 2-layer mamba2-shaped model (5 heads of 18: 90 channels) on a
+    (2, 4) ("data", "model") mesh of the same ranks, where each rank of
+    "model" keeps z and x on its channel share (23 a rank, the last 21:
+    a short, padded share; the out projection's rows padded alike): a
+    prefill of 16 and of 8 tokens (two rows a rank, fewer than the conv
+    history's three, so the history spans ranks) and two greedy decode
+    steps against the unsharded model, and a differentiated step (FSDP,
+    grad_shardings) against the unsharded one."""
+    mesh = make_host_mesh(2, 4, device="cpu")
+    cfg = dataclasses.replace(small("mamba2-130m"), n_layers=2, d_model=45,
+                              ssm_head_dim=18)
+    run = RunConfig(model=cfg, mode="train", seq_len=16, global_batch=8,
+                    remat="dots", fsdp=True)
+    state, _ = ts.init_train_state(torch.Generator().manual_seed(12), cfg,
+                                   run)
+    tokens = SyntheticLM(cfg, run, seed=13, device="cpu").batch(0)["tokens"]
+    out = {f"prefill_{s}": _serve(cfg, run, state.params, mesh,
+                                  tokens[:, :s])
+           for s in (16, 8)}
+    batch = SyntheticLM(cfg, run, seed=14, device="cpu").batch(0)
+    out["step"] = sharded_step(mesh, cfg, run, state, batch, True)
+    return out
+
+
+def check_cp_prefill(mesh, inputs):
+    """The context-parallel prefill (three heads, one KV head) on a (2,
+    4) ("data", "model") mesh of the same ranks: each rank attends its 8
+    of 32 queries to the whole keys on the chunked route, with the score
+    budget cut so that its chunks are 2 queries (the in-place softmax,
+    four chunks a rank), against the unsharded prefill."""
+    from repro_torch.models import attention
+    mesh = make_host_mesh(2, 4, device="cpu")
+    cfg = cfg_of("glm4-9b", CONTEXT)
+    run = RunConfig(model=cfg, mode="prefill", seq_len=32, global_batch=8,
+                    fsdp=True)
+    tokens = SyntheticLM(cfg, run, seed=15, device="cpu").batch(0)["tokens"]
+    chunks = []
+    saved = attention.SCORE_BYTES, attention._scores_chunk
+    # 4 rows x 3 heads x 2 queries x 32 keys x 4 bytes (float32: one copy)
+    attention.SCORE_BYTES = 4 * 3 * 2 * 32 * 4
+
+    def recorded(*a):
+        chunks.append(saved[1](*a))
+        return chunks[-1]
+    attention._scores_chunk = recorded
+    try:
+        out = _serve(cfg, run, state_from(inputs, "context").params, mesh,
+                     tokens, steps=0)
+    finally:
+        attention.SCORE_BYTES, attention._scores_chunk = saved
+    out["chunks"] = sorted(set(chunks))
+    return out
+
+
 def check_elastic(inputs):
     cfg = cfg_of("glm4-9b", DENSE)
     state = state_from(inputs, "dense")
@@ -685,7 +740,9 @@ def main():
                                    ("decode", check_decode),
                                    ("prefill_cache", check_prefill_cache),
                                    ("families", check_families),
-                                   ("serving", check_serving))}
+                                   ("serving", check_serving),
+                                   ("ssd_share", check_ssd_share),
+                                   ("cp_prefill", check_cp_prefill))}
     elif WORLD == "elastic":
         checks = {"elastic": lambda: check_elastic(inputs),
                   "psum": lambda: check_psum(inputs),

@@ -518,6 +518,50 @@ def test_repaired_serving_paths_equal_the_unsharded_calls(lm_world, path):
         assert out["columns_calls"] > 0, out
 
 
+@pytest.mark.parametrize("prompt", [16, 8])
+def test_sharded_ssd_prefill_equals_the_unsharded_one(lm_world, prompt):
+    """A 2-layer mamba2-shaped prefill on a (2, 4) mesh, each rank of
+    "model" holding z and x on its channel share alone (90 channels, 23
+    a rank and a short, padded last share of 21; the gated norm's sum of
+    squares summed over the shares): its logits, two greedy decode
+    steps' and the cache - the SSD state and the conv history, gathered
+    from each rank's last rows (8 tokens leave two a rank, fewer than
+    the history's three) - within 1e-6 of their max of the unsharded
+    model's."""
+    out = lm_world.check("ssd_share")[f"prefill_{prompt}"]
+    assert out["err"] <= 1e-6, out
+    assert out["cache_err"] <= 1e-6, out
+
+
+def test_sharded_ssd_step_with_a_short_share_equals_the_unsharded_one(
+        lm_world):
+    """The same model's differentiated step (FSDP, grad_shardings) on the
+    (2, 4) mesh - the gradient through the channel shares, the
+    all-to-all that moves them, the norm's summed squares and the padded
+    out projection - against the unsharded step: loss and gradient norm
+    1e-5 relative, parameters and Adam moments 1e-5 of their max."""
+    out = lm_world.check("ssd_share")["step"]
+    assert abs(out["loss"] - out["plain_loss"]) <= 1e-5 * abs(
+        out["plain_loss"]), out
+    assert abs(out["grad_norm"] - out["plain_grad_norm"]) <= \
+        1e-5 * out["plain_grad_norm"], out
+    assert out["param_err"] <= 1e-5 * out["param_scale"], out
+    assert out["m_err"] <= 1e-5 * out["m_scale"], out
+
+
+def test_context_parallel_prefill_in_small_chunks_equals_the_unsharded_one(
+        lm_world):
+    """Three heads over the four "model" ranks of a (2, 4) mesh: each rank
+    attends its 8 of 32 queries to the whole keys on the chunked route,
+    in chunks of 2 queries under a cut score budget (the in-place
+    softmax), and the prefill's logits and cache are within 1e-6 of
+    their max of the unsharded prefill's."""
+    out = lm_world.check("cp_prefill")
+    assert out["chunks"] == [2], out
+    assert out["err"] <= 1e-6, out
+    assert out["cache_err"] <= 1e-6, out
+
+
 def test_elastic_remesh_restore(elastic_world):
     """The reference's `test_elastic_remesh_restore`: a state saved
     sharded on (2, 2) restores onto `ElasticMesh.make_mesh`'s (1, 4),
