@@ -8,7 +8,9 @@ A library's file name carries a hash of its source, the shared headers
 first use.  Each build writes a temporary file named after its process and
 thread and renames it into place, and `load` holds a module lock: serving
 replicas whose worker threads reach a cold build directory together build
-each library once and load it once.
+each library once and load it once.  `build` adds the seconds of each
+call that ran nvcc to the counter `kernel.build_s` of
+`repro_torch.tracing` (a `load` that built, through it).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from repro_torch import tracing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -84,6 +88,8 @@ def build(names=None) -> dict:
             os.replace(tmp, out)        # atomic: concurrent builds agree
         results[name] = {"path": str(out),
                          "seconds": time.perf_counter() - t0, "log": log}
+    if any(proc is not None for _, _, proc in procs.values()):
+        tracing.count("kernel.build_s", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return results

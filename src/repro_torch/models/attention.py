@@ -107,6 +107,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as kflash
@@ -331,9 +332,11 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
     and heads, and under context parallelism on its share of the
     queries by the chunked route, unless `keep_flash` (use_flash=True)
     holds the kernel's route with q whole (module docstring).  Returns
-    (B, S, H*hd)."""
+    (B, S, H*hd).  The layout and the route are the span `attn.core`,
+    the part a fused kernel replaces, and their backward `attn.core.bwd`
+    (`tracing`)."""
     b, s = q.shape[0], q.shape[1]
-    q, k, v = _layout(q, k, v, cfg, keep_flash)
+    inputs = q, k, v
 
     def core(q, k, v, positions, q_positions):
         if flash:
@@ -346,26 +349,33 @@ def _attend(q, k, v, positions, cfg: ModelConfig, flash: bool,
         return _chunked_attend(q, k, v, positions, window, chunk,
                                q_positions, one_copy)
 
-    if is_dtensor(q):           # batch rows and heads split, as q's
-        mesh = q.device_mesh
-        seq = [(p.is_shard(1) or p.is_replicate() and r.is_shard(1))
-               and mesh.size(j) > 1
-               for j, (p, r) in enumerate(zip(q.placements, k.placements))]
-        if any(seq) and flash and keep_flash:
-            seq = [False] * len(seq)    # the kernel's mask starts at query 0
-        if any(seq):            # the queries split as k's sequence is
-            flash = False
-            q = lay_out(q, mesh, [Shard(1) if cut else p
-                                  for p, cut in zip(q.placements, seq)])
-        k, v = (_seq_gathered(t, [Replicate() if p.is_shard(1) else p
-                                  for p in q.placements]) for t in (k, v))
-        size, off = local_box(q)
-        rows = whole(positions)[off[0]:off[0] + size[0]]
-        out = on_local(core, q, k, v, rows,
-                       rows[:, off[1]:off[1] + size[1]], split=(0, 1, 2))
-    else:
-        out = core(q, k, v, positions, None)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    with tracing.span("attn.core"):
+        q, k, v = _layout(q, k, v, cfg, keep_flash)
+        if is_dtensor(q):       # batch rows and heads split, as q's
+            mesh = q.device_mesh
+            seq = [(p.is_shard(1) or p.is_replicate() and r.is_shard(1))
+                   and mesh.size(j) > 1 for j, (p, r) in
+                   enumerate(zip(q.placements, k.placements))]
+            if any(seq) and flash and keep_flash:
+                # the kernel's mask starts at query 0
+                seq = [False] * len(seq)
+            if any(seq):        # the queries split as k's sequence is
+                flash = False
+                q = lay_out(q, mesh, [Shard(1) if cut else p
+                                      for p, cut in zip(q.placements, seq)])
+            k, v = (_seq_gathered(t, [Replicate() if p.is_shard(1) else p
+                                      for p in q.placements])
+                    for t in (k, v))
+            size, off = local_box(q)
+            rows = whole(positions)[off[0]:off[0] + size[0]]
+            out = on_local(core, q, k, v, rows,
+                           rows[:, off[1]:off[1] + size[1]],
+                           split=(0, 1, 2))
+        else:
+            out = core(q, k, v, positions, None)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    tracing.backward_span("attn.core.bwd", inputs, out)
+    return out
 
 
 def _seq_gathered(t: torch.Tensor, place) -> torch.Tensor:

@@ -8,6 +8,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.sharding.api import argmax
@@ -17,10 +18,11 @@ def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
     """prefill(params, tokens|embeds) -> (next_token, cache)."""
 
     def prefill_step(params, batch: Dict):
-        logits, cache = tr.prefill(
-            params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), cache_len=cache_len)
-        next_tok = argmax(logits).to(torch.int32)
+        with tracing.span("serve.prefill"):
+            logits, cache = tr.prefill(
+                params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"), cache_len=cache_len)
+            next_tok = argmax(logits).to(torch.int32)
         return next_tok, cache
 
     return prefill_step

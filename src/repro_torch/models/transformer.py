@@ -40,6 +40,11 @@ nothing but the repeat's inputs; "dots" is the reference's
 matmuls (`aten.mm`, `aten.addmm`) are saved and everything else,
 the attention's batched score products (`aten.bmm`) included, is
 recomputed in the backward.  Remat changes memory, never values.
+
+While a profiler records, the embedding (`lm.embed`), an attention
+block's attention with its first norm (`lm.attn`), each block's FFN with
+its norm and residual add (`lm.ffn`) and the head (`lm.head`) are spans
+of `repro_torch.tracing`.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch
 from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -112,14 +118,16 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool
     # the norm's output is handed on, not held here, and the FFN's
     # output laid out before the residual's add: neither the norm's
     # output nor a partial sum's storage is live at the add
-    if is_moe:
-        out, aux = moe_mod.moe_ffn(
-            params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps), cfg)
-    else:
-        out = swiglu_ffn(params["ffn"],
-                         rms_norm(x, params["ln2"], cfg.norm_eps))
-    out = shard(out, "act_btd")
-    return x + out, aux
+    with tracing.span("lm.ffn"):
+        if is_moe:
+            out, aux = moe_mod.moe_ffn(
+                params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps),
+                cfg)
+        else:
+            out = swiglu_ffn(params["ffn"],
+                             rms_norm(x, params["ln2"], cfg.norm_eps))
+        out = shard(out, "act_btd")
+        return x + out, aux
 
 
 def _window(cfg: ModelConfig, unit) -> Optional[int]:
@@ -133,14 +141,15 @@ def block_forward(params: Dict, x: torch.Tensor, positions: torch.Tensor,
                   window: Optional[int], *, use_flash: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, aux_loss)."""
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    norm = functools.partial(rms_norm, x, params["ln1"], cfg.norm_eps)
     if kind == "attn":
-        mixed = attn_mod.attention(params["mix"], h, positions, cfg,
-                                   window=window, use_flash=use_flash)
+        with tracing.span("lm.attn"):
+            mixed = attn_mod.attention(params["mix"], norm(), positions, cfg,
+                                       window=window, use_flash=use_flash)
     elif kind == "rec":
-        mixed = rglru_mod.rglru_forward(params["mix"], h, cfg)
+        mixed = rglru_mod.rglru_forward(params["mix"], norm(), cfg)
     else:
-        mixed = ssm_mod.ssm_forward(params["mix"], h, cfg)
+        mixed = ssm_mod.ssm_forward(params["mix"], norm(), cfg)
     x, aux = _ffn(params, shard(x + shard(mixed, "act_btd"), "act_btd"),
                   cfg, is_moe)
     return shard(x, "act_btd"), aux
@@ -261,16 +270,18 @@ def _embed(params: Dict, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     """Token embeddings in the compute dtype, laid out as "act_btd".  A
     DTensor table is looked up on its shards (`_lookup_split`)."""
     dtype = _dtype(cfg.compute_dtype)
-    if embeds is not None:
-        return shard(embeds.to(dtype), "act_btd")
-    table = params["embed"]
-    if not is_dtensor(table):
-        return shard(table[tokens.long()].to(dtype), "act_btd")
-    x = shard(_lookup_split(table, tokens.long(), dtype), "act_btd")
-    if any(p.is_partial() for p in x.placements):   # no rule: summed here
-        x = lay_out(x, x.device_mesh, [Replicate() if p.is_partial() else p
-                                       for p in x.placements])
-    return x
+    with tracing.span("lm.embed"):
+        if embeds is not None:
+            return shard(embeds.to(dtype), "act_btd")
+        table = params["embed"]
+        if not is_dtensor(table):
+            return shard(table[tokens.long()].to(dtype), "act_btd")
+        x = shard(_lookup_split(table, tokens.long(), dtype), "act_btd")
+        # no rule: summed here
+        if any(p.is_partial() for p in x.placements):
+            x = lay_out(x, x.device_mesh, [
+                Replicate() if p.is_partial() else p for p in x.placements])
+        return x
 
 
 def _lookup_split(table: torch.Tensor, ids: torch.Tensor,
@@ -307,12 +318,13 @@ def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor,
           layout: Optional[str] = None) -> torch.Tensor:
     """Final norm, LM head (its product laid out by `layout` where the
     reference names one), softcap."""
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = mm(x, head)
-    if layout is not None:
-        logits = shard(logits, layout)
-    return softcap(logits, cfg.logit_softcap)
+    with tracing.span("lm.head"):
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        logits = mm(x, head)
+        if layout is not None:
+            logits = shard(logits, layout)
+        return softcap(logits, cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +404,10 @@ def block_prefill(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     norm = functools.partial(rms_norm, x, params["ln1"], cfg.norm_eps)
     if kind == "attn":
         clen = min(cache_len, window) if window is not None else cache_len
-        mixed, cache = attn_mod.attention_prefill(
-            params["mix"], norm(), positions, cfg, clen, window=window,
-            cache_dtype=cache_dtype, use_flash=use_flash)
+        with tracing.span("lm.attn"):
+            mixed, cache = attn_mod.attention_prefill(
+                params["mix"], norm(), positions, cfg, clen, window=window,
+                cache_dtype=cache_dtype, use_flash=use_flash)
     elif kind == "rec":
         mixed, cache = rglru_mod.rglru_forward(params["mix"], norm(), cfg,
                                                return_cache=True)

@@ -22,7 +22,10 @@ each gradient, the microbatch accumulator included, out as its leaf, as
 the reference's `constrain` does: the batch-axis reduction becomes a
 reduce-scatter into the parameter's shards.  Vocabulary-split logits
 take the loss on each rank's shard (`_split_terms`), never whole.  The
-metrics come back as plain 0-d tensors, whole on every rank.
+metrics come back as plain 0-d tensors, whole on every rank.  While a
+profiler records, each microbatch's forward and backward, its
+accumulation and the optimiser's part are spans of `repro_torch.tracing`
+(`train.microbatch`, `train.accumulate`, `train.optimizer`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Partial, Replicate
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import transformer as tr
 from repro_torch.numerics import over
@@ -230,7 +234,8 @@ def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
 
     def accumulate(state: TrainState, batch: Dict):
         if n_micro == 1:
-            loss, metrics, grads = grad_fn(state.params, batch)
+            with tracing.span("train.microbatch"):
+                loss, metrics, grads = grad_fn(state.params, batch)
             return loss, metrics, constrain(grads)
         grads = constrain(tree_map(
             lambda p: torch.zeros_like(p, dtype=acc_dt), state.params))
@@ -239,9 +244,11 @@ def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
         parts = {key: _parts(x, n_micro) for key, x in batch.items()}
         for i in range(n_micro):
             micro = {key: _part(x, i, n_micro) for key, x in parts.items()}
-            l_i, _, g = grad_fn(state.params, micro)
+            with tracing.span("train.microbatch"):
+                l_i, _, g = grad_fn(state.params, micro)
             g = constrain(g)
-            with torch.no_grad():   # g / n_micro in g's dtype, as JAX
+            # g / n_micro in g's dtype, as JAX
+            with tracing.span("train.accumulate"), torch.no_grad():
                 for acc, x in zip(tree_leaves(grads), tree_leaves(g)):
                     acc.add_(over(x, n_micro).to(acc_dt))
             del g
@@ -255,13 +262,14 @@ def make_train_step(model_cfg: ModelConfig, run_cfg: RunConfig, opt: AdamW,
         sharded = any(is_dtensor(p) for p in tree_leaves(state.params))
         with mesh_ops() if sharded else contextlib.nullcontext():
             loss, metrics, grads = accumulate(state, batch)
-            lr_scale = warmup_cosine(state.opt.step)
-            new_params, new_opt = opt.update(grads, state.opt, state.params,
-                                             lr_scale=lr_scale)
-            with torch.no_grad():
-                gnorm = torch.sqrt(sum(
-                    torch.sum(torch.square(g.to(torch.float32)))
-                    for g in tree_leaves(grads)))
+            with tracing.span("train.optimizer"):
+                lr_scale = warmup_cosine(state.opt.step)
+                new_params, new_opt = opt.update(
+                    grads, state.opt, state.params, lr_scale=lr_scale)
+                with torch.no_grad():
+                    gnorm = torch.sqrt(sum(
+                        torch.sum(torch.square(g.to(torch.float32)))
+                        for g in tree_leaves(grads)))
             metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                            lr_scale=lr_scale)
             metrics = {key: whole(val) for key, val in metrics.items()}

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
                                          restore_checkpoint)
 from repro_torch.configs.base import ModelConfig, RunConfig
@@ -58,19 +59,32 @@ class Trainer:
                 self.start_step = last
 
     def run(self, n_steps: int) -> Dict[str, list]:
-        history: Dict[str, list] = {"loss": [], "step": [], "dt": []}
+        """Runs n_steps steps; returns their history, a list a key with
+        one entry a step: "loss", "step", "dt" (host seconds of the update
+        and its loss read) and "retries" (the attempts `retry_step` ran
+        again after a `RuntimeError`).  A step is the span
+        `train.step`: its batch draw (`train.batch`), the update and the
+        loss read (`train.host_read`)."""
+        history: Dict[str, list] = {"loss": [], "step": [], "dt": [],
+                                    "retries": []}
         watchdog = StepWatchdog()
         for step in range(self.start_step, self.start_step + n_steps):
-            batch = self.data.batch(step)
-            t0 = time.monotonic()
-            with watchdog:
-                self.state, metrics = retry_step(
-                    lambda: self.step_fn(self.state, batch))
-            loss = float(metrics["loss"])
-            dt = time.monotonic() - t0
+            retried = []
+            with tracing.span("train.step"):
+                with tracing.span("train.batch"):
+                    batch = self.data.batch(step)
+                t0 = time.monotonic()
+                with watchdog:
+                    self.state, metrics = retry_step(
+                        lambda: self.step_fn(self.state, batch),
+                        on_retry=lambda attempt, exc: retried.append(attempt))
+                with tracing.span("train.host_read"):
+                    loss = float(metrics["loss"])
+                dt = time.monotonic() - t0
             history["loss"].append(loss)
             history["step"].append(step)
             history["dt"].append(dt)
+            history["retries"].append(len(retried))
             if self.on_metrics:
                 self.on_metrics(step, metrics)
             if step % self.log_every == 0:
